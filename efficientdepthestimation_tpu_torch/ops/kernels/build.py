@@ -1,0 +1,95 @@
+"""Build the hand-written CUDA kernels in ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exports plain C functions, so ``nvcc`` builds it in
+seconds without PyTorch's headers. The shared library goes into
+``efficientdepthestimation_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by a hash of the source and the flags, so an edited source is rebuilt.
+Nothing is built at import: the first call that needs a kernel builds it, and
+a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["build", "load", "check", "CSRC_DIR", "BUILD_DIR"]
+
+_PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+
+# sm_90a (not sm_90): wgmma and setmaxnreg exist only for that target.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.isfile(candidate):
+        return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the CUDA "
+            "kernels of efficientdepthestimation_tpu_torch need the toolkit")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names) -> dict[str, str]:
+    """Compile every named source not yet built, all ``nvcc`` processes at
+    once. Returns each library's ``-Xptxas -v`` report (registers, shared
+    memory and spills per kernel). Raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in names:
+            so = _target(name)
+            if so.exists():
+                continue
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, so)
+    finally:
+        failed = []
+        for name, (proc, tmp, so) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{out}")
+                continue
+            so.with_suffix(".log").write_text(out)
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _target(name).with_suffix(".log").read_text()
+            for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, building it on first use."""
+    build([name])
+    lib = ctypes.CDLL(str(_target(name)))
+    lib.ede_error_string.argtypes = [ctypes.c_int]
+    lib.ede_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if code != 0:
+        msg = lib.ede_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
