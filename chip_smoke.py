@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of ENB0-HU serving on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of ENB0-HU serving and training on one card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -7,18 +7,25 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, one output line each (more for the per-site detail):
 
-  1. build both hand-written kernels with nvcc and print their registers,
-     shared memory and spills (``-Xptxas -v``);
+  1. build the three hand-written kernel sources with nvcc and print their
+     registers, shared memory and spills (``-Xptxas -v``);
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at every shape the
-     ENB0-HU serving path gives it, at batch 128, in bf16 and f32;
+     ENB0-HU serving path gives it, at batch 128, in bf16 and f32, and the
+     loss kernel pair at the training shape (64, 114, 152);
   4. load ``e2e/ENB0-HU-synthetic.ede``, check the f32 forward against the
      JAX reference fixture, then serve 128 uint8 480×640 frames in bf16
      through ``make_serving_fn`` and check shape, finiteness, kernel
      launches (16 depthwise + 4 upsample-conv per forward) and agreement
      with the fixture;
   5. time steady-state frames/s, the stages of the forward, each kernel and
-     its plain version per site, and peak device memory.
+     its plain version per site, and peak device memory;
+  6. train: one f32 step against the JAX training fixture; bf16 steps at
+     batch 64 through ``make_train_step`` (launches of one step: 1 loss
+     forward, 1 loss backward, 4 upsample-conv, 0 depthwise; a finite loss
+     that falls over 10 steps on a fixed batch; weights and BN statistics
+     move); then images/s, the device ms of the step's phases, each loss
+     kernel beside its bound and plain version, and peak device memory.
 
 It prints a JSON line of per-kernel figures, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
@@ -37,14 +44,21 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from efficientdepthestimation_tpu_torch.apps.common import (
     load_any_checkpoint,
     make_infer_fn,
     make_serving_fn,
 )
+from efficientdepthestimation_tpu_torch.checkpoints.convert import to_jax_leaf
+from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+    synthetic_train_set,
+)
 from efficientdepthestimation_tpu_torch.data.transforms import (
+    draw_augmentation,
     eval_preprocess_image_only,
+    train_preprocess,
 )
 from efficientdepthestimation_tpu_torch.models.efficientnet import MBConvBlock
 from efficientdepthestimation_tpu_torch.models.hu2018 import UpProjection
@@ -54,6 +68,14 @@ from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
     depthwise_bn_swish_plain,
 )
+from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
+    fused_depth_loss,
+    fused_depth_loss_bwd,
+    fused_depth_loss_bwd_plain,
+    fused_depth_loss_fwd,
+    fused_depth_loss_fwd_plain,
+    masked_total,
+)
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
     upsample_conv,
     upsample_conv_plain,
@@ -61,11 +83,26 @@ from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
+from efficientdepthestimation_tpu_torch.training.metrics import (
+    depth_metrics_batch,
+)
+from efficientdepthestimation_tpu_torch.training.train_step import (
+    create_train_state,
+    make_train_step,
+    step_seeds,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-HU-synthetic.ede")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_enb0_hu.npz")
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                             "torch_train_enb0_hu.npz")
 BATCH = 128
+TRAIN_BATCH = 64
+TRAIN_FIXTURE_SEEDS = (0, 1)  # tests/make_torch_train_fixture.py
+LR = WEIGHT_DECAY = 1e-4
+LOSS_HW = (114, 152)  # the decoder's output at the 228×304 crop
+FALL_STEPS = 10
 FRAME_HW = (480, 640)
 INPUT_HW = (228, 304)
 DEVICE = "cuda"
@@ -96,6 +133,29 @@ TOL = {
 # a CPU run of the port in bf16 shows max 0.21 m, mean 0.015 m.
 F32_MODEL_TOL = dict(rtol=1e-3, atol=1e-3)
 BF16_MODEL_MAX_ABS, BF16_MODEL_MEAN_ABS = 0.5, 0.05
+# Loss kernel pair vs its plain versions, same inputs on the card.
+#   sums: per-image sums of 17,328 O(1) terms, added in another order
+#         (tiles, warps) than the plain reduction, and the normal term's
+#         norm as sqrt(a·b) (the Pallas kernel's form) against the plain
+#         sqrt(a)·sqrt(b): rtol 1e-5, atol 1e-2; the masked mean then
+#         agrees to 1e-5.
+#   dp f32: the same formula with other FMA contractions; 1e-4 relative
+#         and 1e-5 of the largest |dp| absolute (terms cancel).
+#   dp bf16: one bf16 rounding of that: 1e-2 relative and of the largest.
+LOSS_TOL = {"sums": (1e-5, 1e-2), "loss": (1e-5, 1e-6),
+            ("dp", torch.float32): 1e-4, ("dp", torch.bfloat16): 1e-2}
+# The f32 training step on the card against the JAX step on the CPU (the
+# fixture), TF32 off: the loss and metric sums to 1e-4 (cuDNN sums in
+# another order); gradients to 1e-2 of their leaf's largest value (2.4e-3
+# between the port and JAX on the CPU); BN statistics to 1e-4; Adam's first
+# update is ±lr per element, so at most 1 element in 100 whose gradient is
+# within float noise of 0 may step the other way (2·lr apart).
+STEP_TOL = dict(metrics=1e-4, grad=1e-2, stats=1e-4, flips=0.01)
+# Operations a pixel, f32 on the CUDA cores (67 TFLOP/s): the forward's
+# two Sobel pairs and four terms (3 logs, a sqrt, a divide) ~60, the
+# backward's Sobel pairs, A/B factors (2 sqrts, 6 divides) and the two
+# correlations ~120. Each is below its bytes time, so bytes bound both.
+LOSS_FWD_OPS_PER_PX, LOSS_BWD_OPS_PER_PX = 60, 120
 
 
 def fixture_frames() -> np.ndarray:
@@ -217,12 +277,13 @@ def check_close(name, actual, expected, tol) -> float:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    logs = build.build(["depthwise_bn_swish", "upsample_conv"])
+    logs = build.build(["depthwise_bn_swish", "upsample_conv",
+                        "fused_depth_loss"])
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("1 build", f"{name}: {line.strip()}")
-    log("1 build", f"ok: both kernels built for sm_90a in "
+    log("1 build", f"ok: the three kernel sources built for sm_90a in "
                    f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -271,6 +332,63 @@ def phase_kernels(model, dw_sites, up_sites) -> dict:
     log("3 kernels", f"ok: {len(dw_sites)} depthwise and {len(up_sites)} "
                      "upsample_conv sites agree with the plain versions in "
                      f"f32 and bf16; (rtol, atol): {TOL}")
+    return errs
+
+
+def loss_inputs(dtype, gen) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pred, target) at the training shape: image 0 flat in both, image 1
+    with pred == target, the rest uniform in 1-9 m."""
+    shape = (TRAIN_BATCH, *LOSS_HW)
+    target = torch.rand(shape, generator=gen, device=DEVICE) * 8 + 1
+    pred = torch.rand(shape, generator=gen, device=DEVICE) * 8 + 1
+    pred[0] = target[0] = 3.0
+    pred[1] = target[1]
+    return pred.to(dtype).contiguous(), target
+
+
+def phase_loss_kernels() -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    hw = LOSS_HW[0] * LOSS_HW[1]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pred, target = loss_inputs(dtype, gen)
+        sums = fused_depth_loss_fwd(pred, target)
+        ref = fused_depth_loss_fwd_plain(pred, target)
+        torch.cuda.synchronize()
+        e_sums = check_close("fused_depth_loss sums", sums, ref,
+                             LOSS_TOL["sums"])
+        if not torch.equal(sums, fused_depth_loss_fwd(pred, target)):
+            raise RuntimeError("fused_depth_loss sums differ between runs")
+        e_dp = 0.0
+        for num_valid in (TRAIN_BATCH, 50):
+            mask = (torch.arange(TRAIN_BATCH, device=DEVICE)
+                    < num_valid).float()
+            e_loss = check_close(
+                f"fused_depth_loss value nv={num_valid}",
+                masked_total(sums, mask, hw), masked_total(ref, mask, hw),
+                LOSS_TOL["loss"])
+            coef = torch.full((1,), 1.0 / (num_valid * hw), device=DEVICE)
+            dp = fused_depth_loss_bwd(pred, target, mask, coef)
+            dp_ref = fused_depth_loss_bwd_plain(pred, target, mask, coef)
+            torch.cuda.synchronize()
+            tol = LOSS_TOL[("dp", dtype)]
+            scale = dp_ref.float().abs().max().item()
+            e = check_close(f"fused_depth_loss dp nv={num_valid}", dp, dp_ref,
+                            (tol, max(tol, 1e-5) * scale))
+            e_dp = max(e_dp, e)
+            if dp[0].any() or dp[num_valid:].any():
+                raise RuntimeError("fused_depth_loss_bwd: a flat or masked "
+                                   "image got a gradient")
+            log("3 kernels", f"fused_depth_loss {dtype} ({TRAIN_BATCH},"
+                f"{LOSS_HW[0]},{LOSS_HW[1]}) num_valid={num_valid}: "
+                f"max|sums-plain|={e_sums:.3g}, |loss-plain|={e_loss:.3g}, "
+                f"max|dp-plain|={e:.3g} (max|dp| {scale:.3g}); flat and "
+                "masked images exactly 0")
+        if dtype == torch.bfloat16:
+            errs = {"fused_depth_loss": e_sums, "fused_depth_loss_bwd": e_dp}
+    log("3 kernels", f"ok: the loss kernel pair agrees with its plain "
+        f"versions in f32 and bf16; (rtol, atol) {LOSS_TOL} (dp atol "
+        "relative to the largest |dp|), reasons at LOSS_TOL")
     return errs
 
 
@@ -404,6 +522,292 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites) -> dict:
     return res
 
 
+def train_batch(seeds) -> dict:
+    """uint8 ``render_scene`` frames and ×25.5 depths, on the card."""
+    pairs = synthetic_train_set(seeds)
+    return {"image": torch.from_numpy(np.stack([p[0] for p in pairs])
+                                      ).to(DEVICE),
+            "depth": torch.from_numpy(np.stack([p[1] for p in pairs])
+                                      ).to(DEVICE),
+            "num_valid": len(pairs)}
+
+
+def jax_keyed(model, grads: bool) -> dict[str, np.ndarray]:
+    """Gradients, or parameters and statistics, keyed as in the fixture."""
+    items = (((n, p.grad) for n, p in model.named_parameters()) if grads
+             else model.state_dict().items())
+    out = {}
+    for name, value in items:
+        collection, path, arr = to_jax_leaf(name, value)
+        out[f"{collection}/{path}"] = arr
+    return out
+
+
+def phase_train_fixture() -> dict:
+    """(a) One f32 step against the JAX package's, recorded in the fixture
+    (drop-connect off, the fixture's augmentation draws, TF32 off)."""
+    fx = dict(np.load(TRAIN_FIXTURE))
+    batch = train_batch(TRAIN_FIXTURE_SEEDS)
+    if (int(batch["image"].sum()) != int(fx["frames_sum"])
+            or int(batch["depth"].sum()) != int(fx["depths_sum"])):
+        raise RuntimeError("training fixture frames differ from the recipe")
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    model.E.drop_connect_rate = 0.0
+    state = create_train_state(model, LR, WEIGHT_DECAY)
+    step = make_train_step(device=DEVICE)
+    draws = {k[len("draw_"):]: torch.from_numpy(v) for k, v in fx.items()
+             if k.startswith("draw_")}
+    state, metrics = step(state, batch, 0, draws=draws)
+    errs = {}
+    for name, value in metrics.items():
+        ref = float(fx[f"metric/{name}"])
+        errs[name] = abs(float(value) - ref) / max(abs(ref), 1e-12)
+    grads = jax_keyed(model, grads=True)
+    for key in (k for k in fx if k.startswith("grad/")):
+        ref = fx[key]
+        got = grads["params/" + key[len("grad/"):]]
+        errs[key] = float(np.abs(got - ref).max() / np.abs(ref).max())
+    values = jax_keyed(model, grads=False)
+    flips = 0.0
+    for key in (k for k in fx if k.startswith(("stat/", "param/"))):
+        ref = fx[key]
+        col = "batch_stats/" if key.startswith("stat/") else "params/"
+        err = np.abs(values[col + key.split("/", 1)[1]] - ref)
+        if key.startswith("stat/"):
+            errs[key] = float((err / np.maximum(np.abs(ref), 1e-3)).max())
+        else:
+            if err.max() > 2 * LR * 1.001:
+                raise RuntimeError(f"{key}: update differs by {err.max()}")
+            flips = max(flips, float((err > 1e-6).mean()))
+    worst = {
+        "metrics": max(v for k, v in errs.items() if "/" not in k),
+        "grad": max(v for k, v in errs.items() if k.startswith("grad/")),
+        "stats": max(v for k, v in errs.items() if k.startswith("stat/")),
+        "flips": flips}
+    for key, value in worst.items():
+        if not value <= STEP_TOL[key]:
+            raise RuntimeError(f"f32 step vs fixture: {key} {value} > "
+                               f"{STEP_TOL[key]} ({errs})")
+    log("6 train", f"f32 step vs JAX fixture (batch 2, 228x304): loss "
+        f"{float(metrics['loss']):.6f} vs {float(fx['metric/loss']):.6f}; "
+        f"worst relative errors {worst} within {STEP_TOL}")
+    return worst
+
+
+def phase_train_steps() -> tuple:
+    """(b) The main training path: bf16 steps at batch 64."""
+    batch = train_batch(range(TRAIN_BATCH))
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    state = create_train_state(model, LR, WEIGHT_DECAY)
+    step = make_train_step(mixed_precision=True, device=DEVICE)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    counters = {"fused_depth_loss": fused_depth_loss_fwd,
+                "fused_depth_loss_bwd": fused_depth_loss_bwd,
+                "upsample_conv": upsample_conv,
+                "depthwise_bn_swish": depthwise_bn_swish}
+    for c in counters.values():
+        c.launches = 0
+    state, metrics = step(state, batch, 0)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    expected = {"fused_depth_loss": 1, "fused_depth_loss_bwd": 1,
+                "upsample_conv": 4, "depthwise_bn_swish": 0}
+    if launches != expected:
+        raise RuntimeError(f"training step launches {launches}, expected "
+                           f"{expected}")
+    # The same batch and augmentation for FALL_STEPS steps: the loss on it
+    # must fall (drop-connect masks still change from step to step).
+    draws = draw_augmentation(torch.Generator().manual_seed(1), TRAIN_BATCH)
+    losses = [metrics["loss"]]
+    for _ in range(FALL_STEPS):
+        state, metrics = step(state, batch, 0, draws=draws)
+        losses.append(metrics["loss"])
+    losses = [float(v) for v in losses]
+    first, last = np.mean(losses[1:4]), np.mean(losses[-3:])
+    if not (np.isfinite(losses).all() and last < first):
+        raise RuntimeError(f"bf16 training loss did not fall: {losses}")
+    after = model.state_dict()
+    moved = [k for k in ("E._conv_stem.weight", "D.up4.conv1.weight",
+                         "R.conv2.weight", "E._bn0.running_mean",
+                         "D.up4.bn1.running_var", "R.bn0.running_var")
+             if not torch.equal(before[k], after[k])]
+    if len(moved) != 6 or after["R.conv2.weight"].dtype != torch.float32:
+        raise RuntimeError(f"weights/statistics that moved: {moved}")
+    log("6 train", f"bf16 step at batch {TRAIN_BATCH} ({FRAME_HW} uint8 in, "
+        f"{INPUT_HW} crop): launches {launches}; loss {losses[0]:.4f}, then "
+        f"{FALL_STEPS} steps on one augmented batch "
+        + " ".join(f"{v:.4f}" for v in losses[1:])
+        + f" (mean of the first 3 {first:.4f} > last 3 {last:.4f}); "
+        "f32 weights and BN statistics moved")
+    return state, step, batch, launches
+
+
+def step_phase_ms(state, batch, seed: int, reps: int = 5) -> dict:
+    """Device ms between CUDA events around the phases of one bf16 step,
+    as ``make_train_step`` runs them, averaged over ``reps`` steps."""
+    model = state.model.train()
+    names = ("preprocess", "forward", "loss", "backward", "optimizer",
+             "metrics")
+    totals = dict.fromkeys(names, 0.0)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        aug_seed, drop_seed = step_seeds(seed, state.step)
+        ev[0].record()
+        draws = draw_augmentation(torch.Generator().manual_seed(aug_seed),
+                                  TRAIN_BATCH)
+        images, depths = train_preprocess(batch["image"], batch["depth"],
+                                          draws)
+        ev[1].record()
+        params = {k: v.to(torch.bfloat16)
+                  for k, v in model.named_parameters()}
+        drop_gen = torch.Generator(device=DEVICE).manual_seed(drop_seed)
+        out = torch.func.functional_call(
+            model, params, (images.to(torch.bfloat16),),
+            {"generator": drop_gen})
+        ev[2].record()
+        loss = fused_depth_loss(out, depths, batch["num_valid"])
+        ev[3].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[4].record()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        ev[5].record()
+        with torch.no_grad():
+            depth_metrics_batch(out.detach(), depths, batch["num_valid"])
+        ev[6].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            totals[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return totals
+
+
+def _self_device_us(event) -> float:
+    return getattr(event, "self_device_time_total", 0.0)
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device ms of one ``fn()`` call replayed from a CUDA graph of
+    ``iters`` calls: the call's kernels (and memsets) without the host's
+    launch cost, which a loop of eager calls would time instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def profile_steps(step, state, batch, steps: int = 2) -> tuple:
+    """Kernel time per step (the union of the kernels' intervals in a
+    ``torch.profiler`` trace of ``steps`` steps), device records per step,
+    and the operators with the most device time per step."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch, 0)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler saw no kernel on the card")
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    ops = sorted(((e.key, _self_device_us(e) / steps / 1e3)
+                  for e in prof.key_averages()
+                  if e.key.startswith("aten::") and _self_device_us(e) > 0),
+                 key=lambda kv: -kv[1])
+    return busy / steps / 1e3, len(spans) / steps, ops[:8]
+
+
+def loss_bound(ops_per_px: int, bytes_per_px: int) -> tuple[float, float]:
+    """(bytes time, operations time) in ms of one launch at the training
+    shape: bf16 pred and f32 target read once; the forward also writes
+    (N, 4) f32 sums, the backward a bf16 dp (in bytes_per_px)."""
+    px = TRAIN_BATCH * LOSS_HW[0] * LOSS_HW[1]
+    nbytes = px * bytes_per_px + TRAIN_BATCH * 4 * 4
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * px * ops_per_px / F32_OPS_PER_S
+
+
+def phase_train_time(card, state, step, batch) -> dict:
+    """(c) images/s, the step's phases, the loss kernels, peak memory."""
+    for _ in range(WARMUP):
+        step(state, batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        step(state, batch, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log("6 train", f"{card}: bf16 training at batch {TRAIN_BATCH}: "
+        f"{TRAIN_BATCH * ITERS / dt:.1f} images/s ({1e3 * dt / ITERS:.2f} ms "
+        f"per step, host clock, batch already on the card), peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    parts = step_phase_ms(state, batch, 0)
+    log("6 train", f"{card}: step phases, device ms between CUDA events: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.2f}")
+    busy_ms, records, top_ops = profile_steps(step, state, batch)
+    log("6 train", f"{card}: kernels busy {busy_ms:.2f} ms per step "
+        f"(torch.profiler, {records:.0f} kernel and copy records a step); "
+        f"against the {1e3 * dt / ITERS:.2f} ms step "
+        f"without the profiler, device idle share "
+        f"{1 - busy_ms / (1e3 * dt / ITERS):.3f}; most device ms per step: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in top_ops))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    pred, target = loss_inputs(torch.bfloat16, gen)
+    mask = torch.ones(TRAIN_BATCH, device=DEVICE)
+    coef = torch.full((1,), 1.0 / pred.numel(), device=DEVICE)
+    res = {}
+    for name, kernel, plain, bound in (
+            ("fused_depth_loss",
+             lambda: fused_depth_loss_fwd(pred, target),
+             lambda: fused_depth_loss_fwd_plain(pred, target),
+             loss_bound(LOSS_FWD_OPS_PER_PX, 2 + 4)),
+            ("fused_depth_loss_bwd",
+             lambda: fused_depth_loss_bwd(pred, target, mask, coef),
+             lambda: fused_depth_loss_bwd_plain(pred, target, mask, coef),
+             loss_bound(LOSS_BWD_OPS_PER_PX, 2 + 4 + 2))):
+        # ms: the kernel's device time, replayed from a CUDA graph; the
+        # wrapper's whole call, host included, is what CUDA events over a
+        # loop of eager calls see.
+        ms = graph_ms(kernel)
+        call_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        tb, to = bound
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bytes=tb, ops=to)
+        log("6 train", f"{card}: {name} ({TRAIN_BATCH},{LOSS_HW[0]},"
+            f"{LOSS_HW[1]}) bf16 pred: kernel {ms:.4f} ms (CUDA graph), "
+            f"wrapper call {call_ms:.4f} ms (CUDA events), plain "
+            f"{plain_ms:.4f} ms, bound {max(tb, to):.4f} ms "
+            f"({'bytes' if tb >= to else 'operations'}, kernel "
+            f"{ms / max(tb, to):.1f}x)")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -420,8 +824,15 @@ def main() -> int:
         raise RuntimeError(f"found {len(dw_sites)} depthwise and "
                            f"{len(up_sites)} direct upsample-conv sites")
     errs = phase_kernels(model, dw_sites, up_sites)
+    errs.update(phase_loss_kernels())
     serve, frames, launches = phase_serve(model)
     res = phase_time(model, serve, frames, card, dw_sites, up_sites)
+    del serve, frames
+    phase_train_fixture()
+    state, step, batch, train_launches = phase_train_steps()
+    res.update(phase_train_time(card, state, step, batch))
+    launches.update({k: train_launches[k] for k in ("fused_depth_loss",
+                                                    "fused_depth_loss_bwd")})
 
     kernels = []
     for name, key, source, replaces in (
@@ -430,7 +841,13 @@ def main() -> int:
              "efficientdepthestimation_tpu/ops/pallas/depthwise.py:120"),
             ("upsample_conv", "upsample_conv",
              "efficientdepthestimation_tpu_torch/csrc/upsample_conv.cu",
-             "efficientdepthestimation_tpu/ops/pallas/upproj.py:171")):
+             "efficientdepthestimation_tpu/ops/pallas/upproj.py:171"),
+            ("fused_depth_loss", "fused_depth_loss",
+             "efficientdepthestimation_tpu_torch/csrc/fused_depth_loss.cu",
+             "efficientdepthestimation_tpu/ops/pallas/fused_loss.py:126"),
+            ("fused_depth_loss_bwd", "fused_depth_loss_bwd",
+             "efficientdepthestimation_tpu_torch/csrc/fused_depth_loss.cu",
+             "efficientdepthestimation_tpu/ops/pallas/fused_loss.py:146")):
         r = res[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

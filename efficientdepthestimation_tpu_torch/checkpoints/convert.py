@@ -1,8 +1,12 @@
-"""The JAX package's variable tree as a PyTorch ``state_dict`` of the port.
+"""The JAX package's variable tree as a PyTorch ``state_dict`` of the port,
+and back.
 
 Module paths are kept (``E/_blocks.0/_bn1`` → ``E._blocks.0._bn1``); leaves
 are renamed and conv kernels transposed from HWIO to OIHW, which also turns
 a depthwise ``(k, k, 1, C)`` kernel into PyTorch's ``(C, 1, k, k)``.
+``to_jax_leaf`` inverts the map for one entry (key and value), so a port
+tensor (a parameter, its gradient or a statistic) can be compared with the
+JAX leaf it came from.
 """
 
 from __future__ import annotations
@@ -10,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_variables"]
+__all__ = ["from_jax_variables", "to_jax_leaf"]
 
 _LEAF_NAMES = {
     ("params", "kernel"): "weight",
@@ -44,3 +48,33 @@ def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
                 arr = arr.transpose(3, 2, 0, 1)
             state[".".join([*modules, torch_name])] = torch.tensor(arr)
     return state
+
+
+def _jax_modules(torch_modules: list[str]) -> list[str]:
+    """Re-join numbered submodules: ``["_blocks", "0"]`` → ``["_blocks.0"]``
+    (the JAX package names them ``_blocks.0``, ``layer1.0``)."""
+    out = []
+    for part in torch_modules:
+        if part.isdigit() and out:
+            out[-1] = f"{out[-1]}.{part}"
+        else:
+            out.append(part)
+    return out
+
+
+def to_jax_leaf(key: str, value) -> tuple[str, str, np.ndarray]:
+    """A port ``state_dict`` entry as ``(collection, "a/b/leaf", array)`` of
+    the JAX variable tree, with conv kernels back in HWIO."""
+    *modules, name = key.split(".")
+    arr = np.asarray(value.detach().cpu().float() if isinstance(
+        value, torch.Tensor) else value)
+    leaf = {"running_mean": "mean", "running_var": "var",
+            "bias": "bias"}.get(name)
+    if name == "weight" and arr.ndim == 4:
+        leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+    elif name == "weight" and arr.ndim == 1:
+        leaf = "scale"
+    if leaf is None:
+        raise ValueError(f"no JAX leaf for {key} of shape {arr.shape}")
+    collection = "batch_stats" if name.startswith("running_") else "params"
+    return collection, "/".join([*_jax_modules(modules), leaf]), arr

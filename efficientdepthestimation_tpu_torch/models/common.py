@@ -41,15 +41,23 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d on NHWC input, computed in f32.
+    """BatchNorm2d on NHWC input with PyTorch's train/eval semantics, in f32.
 
-    Only running statistics are used: training-mode batch statistics belong
-    to the training slice of the port (ROADMAP A10).
+    * eval: the running statistics, folded (``ops.norm.fold_bn``).
+    * train: the batch's biased variance ``E[x²] − E[x]²`` in f32 normalizes;
+      the running statistics move as ``(1 − momentum)·r + momentum·batch``,
+      the variance's with the unbiased ``var·n/(n−1)`` (the JAX package's
+      ``BatchNorm``, ``models/common.py:108-122``).
+
+    The output is computed from ``x.float()`` and cast back to x's dtype;
+    ``weight``/``bias`` may be bf16 (mixed precision), the statistics stay
+    f32.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -61,8 +69,16 @@ class BatchNorm(nn.Module):
                        self.running_var, self.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet (ROADMAP A10); "
-                "call .eval()")
-        return batch_norm(x, *self.folded())
+        if not self.training:
+            return batch_norm(x, *self.folded())
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * (n / max(n - 1, 1))
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (xf * inv + (self.bias - mean * inv)).to(x.dtype)

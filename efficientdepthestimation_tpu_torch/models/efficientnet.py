@@ -1,11 +1,14 @@
-"""EfficientNet feature encoder (eval), on NHWC tensors.
+"""EfficientNet feature encoder, on NHWC tensors.
 
 Counterpart of ``efficientdepthestimation_tpu/models/efficientnet.py``: the
 efficientnet-pytorch 0.6.3 behaviour (MBConv blocks, swish, BatchNorm eps
-1e-3, static same padding from the variant's canonical resolution) with the
-reference's four encoder taps. Each block's depthwise conv, BatchNorm, swish
-and squeeze-excite mean run as one ``depthwise_bn_swish`` kernel launch, as
-``efficientnet_apply_fused`` does in the JAX package.
+1e-3 and momentum 0.01, static same padding from the variant's canonical
+resolution, drop-connect) with the reference's four encoder taps. In eval
+each block's depthwise conv, BatchNorm, swish and squeeze-excite mean run as
+one ``depthwise_bn_swish`` kernel launch, as ``efficientnet_apply_fused``
+does in the JAX package. In training, where BatchNorm uses batch statistics
+and cannot be folded, the depthwise conv is a plain grouped conv, as the JAX
+package's ``MBConvBlock`` trains through XLA's.
 """
 
 from __future__ import annotations
@@ -102,7 +105,8 @@ def efficientnet_stage_splits(variant: str) -> list[int]:
 
 
 class MBConvBlock(nn.Module):
-    """Expand 1×1 → fused depthwise/BN/swish → squeeze-excite → project 1×1."""
+    """Expand 1×1 → depthwise/BN/swish → squeeze-excite → project 1×1, and
+    the residual (with drop-connect in training) where stride 1 keeps C."""
 
     def __init__(self, kernel: int, stride: int, expand: int, cin: int,
                  cout: int, se: float, image_size: tuple[int, int]):
@@ -112,24 +116,28 @@ class MBConvBlock(nn.Module):
             stride == 1 and cin == cout)
         self.pad = same_padding_static(image_size, (kernel, kernel),
                                        (stride, stride))
+        bn = dict(eps=1e-3, momentum=0.01)
         if expand != 1:
             self._expand_conv = Conv(cin, mid, 1)
-            self._bn0 = BatchNorm(mid, eps=1e-3)
+            self._bn0 = BatchNorm(mid, **bn)
         self._depthwise_conv = Conv(mid, mid, kernel, stride, self.pad,
                                     groups=mid)
-        self._bn1 = BatchNorm(mid, eps=1e-3)
+        self._bn1 = BatchNorm(mid, **bn)
         self.has_se = se > 0
         if self.has_se:
             n_sq = max(1, int(cin * se))
             self._se_reduce = Conv(mid, n_sq, 1, bias=True)
             self._se_expand = Conv(n_sq, mid, 1, bias=True)
         self._project_conv = Conv(mid, cout, 1)
-        self._bn2 = BatchNorm(cout, eps=1e-3)
+        self._bn2 = BatchNorm(cout, **bn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop_mask: torch.Tensor | None = None,
+                keep: float = 1.0) -> torch.Tensor:
+        """``drop_mask`` (N, 1, 1, 1) of 0/1 in x's dtype, training only:
+        drop-connect ``x / keep * drop_mask`` on the residual branch."""
         if self.training:
-            raise NotImplementedError(
-                "training-mode MBConv is not ported yet (ROADMAP A10)")
+            return self._forward_train(x, drop_mask, keep)
         inputs = x
         if self.expand != 1:
             x = F.silu(self._bn0(self._expand_conv(x)))
@@ -148,26 +156,66 @@ class MBConvBlock(nn.Module):
             x = x + inputs
         return x
 
+    def _forward_train(self, x, drop_mask, keep):
+        """``MBConvBlock.__call__(train=True)`` of the JAX package
+        (``models/efficientnet.py:146-180``): batch statistics, and the
+        depthwise conv as a grouped conv."""
+        inputs = x
+        if self.expand != 1:
+            x = F.silu(self._bn0(self._expand_conv(x)))
+        x = F.silu(self._bn1(self._depthwise_conv(x)))
+        if self.has_se:
+            squeezed = x.mean(dim=(1, 2), keepdim=True)
+            squeezed = F.silu(self._se_reduce(squeezed))
+            x = torch.sigmoid(self._se_expand(squeezed)) * x
+        x = self._bn2(self._project_conv(x))
+        if self.residual:
+            if drop_mask is not None:
+                x = x / keep * drop_mask
+            x = x + inputs
+        return x
+
 
 class EfficientNetFeatures(nn.Module):
-    """Stem + MBConv blocks, returning the reference's 4 encoder taps."""
+    """Stem + MBConv blocks, returning the reference's 4 encoder taps.
 
-    def __init__(self, variant: str = "efficientnet-b0"):
+    In training, residual block ``i`` of ``n`` drops its branch per sample
+    with probability ``drop_connect_rate · i / n`` (``efficientnet.py:263,
+    282``); 0 turns drop-connect off.
+    """
+
+    def __init__(self, variant: str = "efficientnet-b0",
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         res = EFFICIENTNET_PARAMS[variant][2]
         stem_out, plan = _block_plan(variant)
+        self.drop_connect_rate = drop_connect_rate
         self._conv_stem = Conv(3, stem_out, 3, 2,
                                same_padding_static((res, res), (3, 3), (2, 2)))
-        self._bn0 = BatchNorm(stem_out, eps=1e-3)
+        self._bn0 = BatchNorm(stem_out, eps=1e-3, momentum=0.01)
         self._blocks = nn.ModuleList(MBConvBlock(**args) for args in plan)
         self.splits = set(efficientnet_stage_splits(variant)[1:])
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """NHWC images -> 4 NHWC taps."""
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, ...]:
+        """NHWC images -> 4 NHWC taps. In training with drop-connect on,
+        the masks are drawn from ``generator`` (on x's device)."""
         x = F.silu(self._bn0(self._conv_stem(x)))
         taps = []
+        n_blocks = len(self._blocks)
         for i, block in enumerate(self._blocks):
-            x = block(x)
+            rate = self.drop_connect_rate * i / n_blocks
+            if self.training and block.residual and rate > 0:
+                if generator is None:
+                    raise ValueError("drop-connect in training needs a "
+                                     "torch.Generator")
+                keep = 1.0 - rate
+                u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                               device=x.device)
+                x = block(x, (u < keep).to(x.dtype), keep)
+            else:
+                x = block(x)
             if i + 1 in self.splits:
                 taps.append(x)
         return tuple(taps)

@@ -1,11 +1,13 @@
-"""Hu2018 decoder (D + MFF + R) and the assembled model (eval), NHWC.
+"""Hu2018 decoder (D + MFF + R) and the assembled model, NHWC.
 
 Counterpart of ``efficientdepthestimation_tpu/models/hu2018.py``
 (reference ReSIDE/models/modules.py:16-298, net.py:17-39). Each
 UpProjection computes both 5×5 branches of ``conv(upsample(x))`` in one
 pass over branch-stacked kernels: through the exact einsum rewrite
 (``ops.fused.upsample_conv_pair``) where ``should_fuse`` picks it, else
-through the hand-written ``upsample_conv`` kernel.
+through the hand-written ``upsample_conv`` kernel, whose gradient is the
+VJP of the plain composition. ``module.train()`` selects batch statistics in
+every BatchNorm, as ``train=True`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -130,8 +132,11 @@ class HuDepthModel(nn.Module):
         self.MFF = MFF(block_channel)
         self.R = RefineR(block_channel[3])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        taps = self.E(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` draws the encoder's drop-connect masks in
+        training."""
+        taps = self.E(x, generator=generator)
         x_d = self.D(taps)
         x_mff = self.MFF(taps, tuple(x_d.shape[1:3]))
         return self.R(torch.cat([x_d, x_mff], dim=-1))

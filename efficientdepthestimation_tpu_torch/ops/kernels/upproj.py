@@ -4,7 +4,10 @@ Counterpart of ``efficientdepthestimation_tpu/ops/pallas/upproj.py``.
 ``upsample_conv`` launches the hand-written CUDA kernel in
 ``csrc/upsample_conv.cu`` on CUDA tensors; the upsampled intermediate never
 reaches device memory. On CPU tensors it runs the plain PyTorch version
-``upsample_conv_plain``; it never falls back from one to the other.
+``upsample_conv_plain``; it never falls back from one to the other. It is a
+``torch.autograd.Function`` whose backward is ``upsample_conv_vjp``, the VJP
+of the plain composition ``conv2d(resize(x), K)`` in x's dtype, as JAX's
+``_bwd`` takes it (``upproj.py:197-200``).
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ import torch.nn.functional as F
 
 from efficientdepthestimation_tpu_torch.ops.kernels import build
 from efficientdepthestimation_tpu_torch.ops.resize import (
+    bilinear_align_corners_matrix,
+    device_constant,
     resize_bilinear_align_corners,
 )
 
-__all__ = ["upsample_conv", "upsample_conv_plain"]
+__all__ = ["upsample_conv", "upsample_conv_plain", "upsample_conv_vjp"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TAPS = 5
@@ -46,14 +51,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def upsample_conv(x: torch.Tensor, kernels: torch.Tensor,
-                  size: tuple[int, int]) -> torch.Tensor:
-    """``conv2d(resize_bilinear_align_corners(x, size), kernels, pad=2)``.
+def upsample_conv_vjp(x: torch.Tensor, kernels: torch.Tensor,
+                      size: tuple[int, int], g: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dkernels) of ``conv2d(resize_bilinear_align_corners(x, size),
+    kernels, pad=2)`` for the cotangent ``g`` (N, H, W, O), in x's dtype:
+    the conv's input and weight gradients, then the transposed resize."""
+    up = resize_bilinear_align_corners(x, size).permute(0, 3, 1, 2)
+    w = kernels.to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    g = g.to(x.dtype).permute(0, 3, 1, 2)
+    pad = kernels.shape[0] // 2
+    d_up = torch.nn.grad.conv2d_input(up.shape, w, g, padding=pad)
+    d_w = torch.nn.grad.conv2d_weight(up, w.shape, g, padding=pad)
+    d_up = d_up.permute(0, 2, 3, 1)
+    _, hs, ws, _ = x.shape
+    h, w_out = int(size[0]), int(size[1])
+    if (hs, ws) != (h, w_out):
+        kw = dict(dtype=x.dtype, device=x.device)
+        a = device_constant(bilinear_align_corners_matrix, hs, h, **kw)
+        b = device_constant(bilinear_align_corners_matrix, ws, w_out, **kw)
+        d_up = torch.einsum("Ww,nhWc->nhwc", b,
+                            torch.einsum("Hh,nHwc->nhwc", a, d_up))
+    return (d_up.contiguous(),
+            d_w.permute(2, 3, 1, 0).to(kernels.dtype).contiguous())
 
-    x: (N, hs, ws, C) bf16 or f32; kernels: HWIO (5, 5, C, O) in x's dtype,
-    both UpProjection branches stacked on O. Returns (N, H, W, O) in x's
-    dtype, summed in f32.
-    """
+
+def _forward(x: torch.Tensor, kernels: torch.Tensor,
+             size: tuple[int, int]) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return upsample_conv_plain(x, kernels, size)
     if x.device.type != "cuda":
@@ -87,6 +112,32 @@ def upsample_conv(x: torch.Tensor, kernels: torch.Tensor,
     build.check(lib, err, "upsample_conv")
     upsample_conv.launches += 1
     return y
+
+
+class _UpsampleConv(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, kernels, size):
+        ctx.save_for_backward(x, kernels)
+        ctx.size = size
+        return _forward(x, kernels, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernels = ctx.saved_tensors
+        dx, dk = upsample_conv_vjp(x, kernels, ctx.size, g)
+        return dx, dk, None
+
+
+def upsample_conv(x: torch.Tensor, kernels: torch.Tensor,
+                  size: tuple[int, int]) -> torch.Tensor:
+    """``conv2d(resize_bilinear_align_corners(x, size), kernels, pad=2)``.
+
+    x: (N, hs, ws, C) bf16 or f32; kernels: HWIO (5, 5, C, O) in x's dtype,
+    both UpProjection branches stacked on O. Returns (N, H, W, O) in x's
+    dtype, summed in f32. Differentiable in x and kernels.
+    """
+    return _UpsampleConv.apply(x, kernels, (int(size[0]), int(size[1])))
 
 
 upsample_conv.launches = 0

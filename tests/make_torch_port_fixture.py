@@ -13,6 +13,7 @@ on the CUDA card against it, where there is no JAX.
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 
@@ -51,4 +52,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(HERE))  # the repo root
     main()

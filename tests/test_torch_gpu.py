@@ -1,4 +1,4 @@
-"""Card-only tests of the PyTorch port's CUDA kernels and serving path.
+"""Card-only tests of the PyTorch port's CUDA kernels, serving and training.
 
 Each test skips, inside its body, where there is no CUDA card. This file
 imports no JAX, so it runs on a machine that has none; the repo's
@@ -16,13 +16,28 @@ from efficientdepthestimation_tpu_torch.apps.common import (
     make_infer_fn,
     make_serving_fn,
 )
+from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+    synthetic_train_set,
+)
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
     depthwise_bn_swish_plain,
 )
+from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
+    fused_depth_loss,
+    fused_depth_loss_bwd,
+    fused_depth_loss_bwd_plain,
+    fused_depth_loss_fwd,
+    fused_depth_loss_fwd_plain,
+    masked_total,
+)
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
     upsample_conv,
     upsample_conv_plain,
+)
+from efficientdepthestimation_tpu_torch.training.train_step import (
+    create_train_state,
+    make_train_step,
 )
 
 from make_torch_port_fixture import CHECKPOINT, FIXTURE_PATH, fixture_frames
@@ -108,3 +123,96 @@ def test_serving_on_card_matches_fixture():
             upsample_conv.launches - up) == (16, 4)
     err = np.abs(out.numpy() - fixture["depth"])
     assert err.max() <= 0.5 and err.mean() <= 0.05
+
+
+def _loss_args(dtype, shape=(5, 37, 70), seed=0):
+    """pred in ``dtype`` and f32 target on the card; image 0 flat in both,
+    image 1 with pred == target."""
+    g = torch.Generator().manual_seed(seed)
+    target = torch.rand(shape, generator=g) * 8 + 1
+    pred = torch.rand(shape, generator=g) * 8 + 1
+    pred[0] = target[0] = 3.0
+    pred[1] = target[1]
+    return pred.to(dtype).cuda(), target.cuda()
+
+
+# Kernel vs plain version: per-image sums of up to 17,328 O(1) terms in
+# another order (rtol 1e-5, atol 1e-2); dp f32 to 1e-4 relative and 1e-5 of
+# its largest value, bf16 within one bf16 step (2^-8 relative).
+@pytest.mark.parametrize("dtype,dp_tol", [(torch.float32, 1e-4),
+                                          (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", [(5, 37, 70), (64, 114, 152)])
+def test_loss_kernels_match_plain_on_card(dtype, dp_tol, shape):
+    _need_card()
+    pred, target = _loss_args(dtype, shape)
+    sums = fused_depth_loss_fwd(pred, target)
+    ref = fused_depth_loss_fwd_plain(pred, target)
+    torch.testing.assert_close(sums, ref, rtol=1e-5, atol=1e-2)
+    assert torch.equal(sums, fused_depth_loss_fwd(pred, target))  # no atomics
+    for num_valid in (shape[0], 3):
+        mask = (torch.arange(shape[0], device="cuda") < num_valid).float()
+        coef = torch.full((1,), 0.7 / (num_valid * shape[1] * shape[2]),
+                          device="cuda")
+        dp = fused_depth_loss_bwd(pred, target, mask, coef)
+        dp_ref = fused_depth_loss_bwd_plain(pred, target, mask, coef)
+        assert dp.dtype == dtype
+        scale = dp_ref.float().abs().max().item()
+        torch.testing.assert_close(dp.float(), dp_ref.float(), rtol=dp_tol,
+                                   atol=max(dp_tol, 1e-5) * scale)
+        assert not dp[0].any()  # flat: exactly zero, sign(0) = 0
+        assert not dp[num_valid:].any()
+        torch.testing.assert_close(masked_total(sums, mask, shape[1] *
+                                                shape[2]),
+                                   masked_total(ref, mask, shape[1] *
+                                                shape[2]), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_loss_launch_counters_count_card_launches():
+    _need_card()
+    pred, target = _loss_args(torch.bfloat16)
+    pred.requires_grad_()
+    fwd, bwd = fused_depth_loss_fwd.launches, fused_depth_loss_bwd.launches
+    fused_depth_loss(pred[..., None], target[..., None], 4).backward()
+    fused_depth_loss_fwd_plain(pred.detach(), target)
+    assert (fused_depth_loss_fwd.launches - fwd,
+            fused_depth_loss_bwd.launches - bwd) == (1, 1)
+    assert pred.grad.dtype == torch.bfloat16 and not pred.grad[4].any()
+
+
+def test_loss_wrappers_check_their_inputs_on_card():
+    _need_card()
+    pred, target = _loss_args(torch.float32)
+    with pytest.raises(TypeError):
+        fused_depth_loss_fwd(pred, target.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_depth_loss_fwd(pred.transpose(1, 2), target.transpose(1, 2))
+    with pytest.raises(ValueError, match="both be"):
+        fused_depth_loss_fwd(pred, target[:, :-1])
+    with pytest.raises(ValueError, match="mask"):
+        fused_depth_loss_bwd(pred, target, torch.ones(4, device="cuda"),
+                             torch.ones(1, device="cuda"))
+
+
+def test_bf16_train_step_on_card():
+    """One bf16 ENB0-HU step at batch 4: 1 + 1 loss launches, 4
+    upsample_conv, no depthwise kernel; finite loss; f32 masters move."""
+    _need_card()
+    model = load_any_checkpoint(CHECKPOINT)
+    state = create_train_state(model, 1e-4)
+    step = make_train_step(mixed_precision=True)
+    pairs = synthetic_train_set(range(4))
+    batch = {"image": torch.from_numpy(np.stack([p[0] for p in pairs])),
+             "depth": torch.from_numpy(np.stack([p[1] for p in pairs])),
+             "num_valid": 3}
+    before = model.R.conv2.weight.detach().clone()
+    counters = (fused_depth_loss_fwd, fused_depth_loss_bwd, upsample_conv,
+                depthwise_bn_swish)
+    start = [c.launches for c in counters]
+    state, metrics = step(state, batch, 0)
+    torch.cuda.synchronize()
+    assert [c.launches - s for c, s in zip(counters, start)] == [1, 1, 4, 0]
+    assert np.isfinite(metrics["loss"].item())
+    assert metrics["batch_size"].item() == 3.0
+    assert model.R.conv2.weight.dtype == torch.float32
+    assert not torch.equal(model.R.conv2.weight, before)

@@ -7,6 +7,8 @@ static same padding and the stage splits do not depend on the input size.
 Tolerance rtol 1e-3, atol 1e-4 (as ``test_parity_full_size.py``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,9 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from efficientdepthestimation_tpu.models import (
+    efficientnet as jax_efficientnet,
+)
 from efficientdepthestimation_tpu.models.efficientnet import (
     efficientnet_block_channels as jax_block_channels,
 )
@@ -23,6 +28,7 @@ from efficientdepthestimation_tpu.models.registry import (
 
 from efficientdepthestimation_tpu_torch.checkpoints.convert import (
     from_jax_variables,
+    to_jax_leaf,
 )
 from efficientdepthestimation_tpu_torch.models.efficientnet import (
     efficientnet_block_channels,
@@ -75,7 +81,33 @@ def test_hu_model_matches_jax(variant, input_hw):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
-def test_training_mode_is_refused():
-    model = build_model("efficientnet-b0").train()
-    with pytest.raises(NotImplementedError, match="A10"):
-        model(torch.zeros(1, 64, 96, 3))
+def test_training_mode_matches_jax():
+    """ENB0-HU in training mode (batch statistics, drop-connect off) against
+    ``apply(..., True, mutable=["batch_stats"])``: the output and every
+    updated running statistic, f32; statistics to 1e-6 (one EMA step)."""
+    input_hw = (64, 96)
+    jm = jax_build_model("efficientnet-b0", "hu2018")
+    jm = jm.clone(encoder_factory=functools.partial(
+        jax_efficientnet.EfficientNetFeatures, variant="efficientnet-b0",
+        drop_connect_rate=0.0))
+    variables = _random_variables(jm, input_hw, seed=3)
+    model = build_model("efficientnet-b0", "hu2018")
+    model.load_state_dict(from_jax_variables(
+        jax.tree_util.tree_map(np.asarray, variables)), strict=True)
+    model.E.drop_connect_rate = 0.0
+    x = np.random.default_rng(4).standard_normal(
+        (2, *input_hw, 3)).astype(np.float32)
+    ref, updates = jax.jit(functools.partial(
+        jm.apply, train=True, mutable=["batch_stats"]))(variables,
+                                                        jnp.asarray(x))
+    with torch.no_grad():
+        out = model.train()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), **TOL)
+    stats = updates["batch_stats"]
+    for name, buf in model.named_buffers():
+        _, path, value = to_jax_leaf(name, buf)
+        expected = stats
+        for key in path.split("/"):
+            expected = expected[key]
+        np.testing.assert_allclose(value, np.asarray(expected), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
