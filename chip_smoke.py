@@ -11,15 +11,20 @@ Phases, one output line each (more for the per-site detail):
      registers, shared memory and spills (``-Xptxas -v``);
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at every shape the
-     ENB0-HU serving path gives it, at batch 128, in bf16 and f32, and the
-     loss kernel pair at the training shape (64, 114, 152);
+     ENB0-HU serving path gives it, at batch 128, in bf16 and f32 (the
+     depthwise SE sums bitwise equal across launches), and the loss kernel
+     pair at the training shape (64, 114, 152);
   4. load ``e2e/ENB0-HU-synthetic.ede``, check the f32 forward against the
      JAX reference fixture, then serve 128 uint8 480×640 frames in bf16
      through ``make_serving_fn`` and check shape, finiteness, kernel
      launches (16 depthwise + 4 upsample-conv per forward) and agreement
      with the fixture;
-  5. time steady-state frames/s, the stages of the forward, each kernel and
-     its plain version per site, and peak device memory;
+  5. time steady-state frames/s, the stages of the forward, each kernel
+     and its plain version per site (the kernel as CUDA events over a loop
+     of eager calls, and as a CUDA-graph replay, its device time alone; its GB/s or TFLOP/s and the share of its bound; beside the
+     upsample-conv kernel, cuDNN's interpolate + conv as a yardstick, and
+     the kernel at the four einsum-form sites beside that form), and peak
+     device memory;
   6. train: one f32 step against the JAX training fixture; bf16 steps at
      batch 64 through ``make_train_step`` (launches of one step: 1 loss
      forward, 1 loss backward, 4 upsample-conv, 0 depthwise; a finite loss
@@ -62,7 +67,10 @@ from efficientdepthestimation_tpu_torch.data.transforms import (
 )
 from efficientdepthestimation_tpu_torch.models.efficientnet import MBConvBlock
 from efficientdepthestimation_tpu_torch.models.hu2018 import UpProjection
-from efficientdepthestimation_tpu_torch.ops.fused import should_fuse
+from efficientdepthestimation_tpu_torch.ops.fused import (
+    should_fuse,
+    upsample_conv_pair,
+)
 from efficientdepthestimation_tpu_torch.ops.kernels import build
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
@@ -187,10 +195,11 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def main_path_sites(model) -> tuple[list[dict], list[dict]]:
+def main_path_sites(model) -> tuple[list[dict], list[dict], list[dict]]:
     """The shapes the serving forward gives each kernel, read off one
-    forward at batch 1 on the card, with the module's own weights."""
-    dw_sites, up_sites = [], []
+    forward at batch 1 on the card, with the module's own weights; and the
+    UpProjection sites that take the einsum form instead of the kernel."""
+    dw_sites, up_sites, einsum_sites = [], [], []
 
     def on_block(block, args):
         (x,) = args
@@ -202,12 +211,11 @@ def main_path_sites(model) -> tuple[list[dict], list[dict]]:
 
     def on_up(module, args):
         x, size = args
-        if should_fuse(tuple(x.shape[1:3]), tuple(size), x.shape[-1],
-                       module.features):
-            return
-        up_sites.append(dict(module=module, hw=tuple(x.shape[1:3]),
-                             c=x.shape[-1], size=tuple(size),
-                             o=2 * module.features))
+        fused = should_fuse(tuple(x.shape[1:3]), tuple(size), x.shape[-1],
+                            module.features)
+        (einsum_sites if fused else up_sites).append(dict(
+            module=module, hw=tuple(x.shape[1:3]), c=x.shape[-1],
+            size=tuple(size), o=2 * module.features))
 
     names = {m: n for n, m in model.named_modules()}
     hooks = [m.register_forward_pre_hook(on_block) for m in model.modules()
@@ -218,9 +226,9 @@ def main_path_sites(model) -> tuple[list[dict], list[dict]]:
         model(torch.zeros(1, *INPUT_HW, 3, device=DEVICE))
     for h in hooks:
         h.remove()
-    for s in up_sites:
+    for s in up_sites + einsum_sites:
         s["name"] = names[s.pop("module")]
-    return dw_sites, up_sites
+    return dw_sites, up_sites, einsum_sites
 
 
 def dw_inputs(site: dict, dtype, gen) -> tuple:
@@ -311,6 +319,9 @@ def phase_kernels(model, dw_sites, up_sites) -> dict:
                 e = check_close(s["name"], y, y_ref, tol["y"])
                 es = check_close(s["name"] + " sums", sums, sums_ref,
                                  tol["sums"])
+                if not torch.equal(sums, depthwise_bn_swish(*args, **kw)[1]):
+                    raise RuntimeError(f"{s['name']}: depthwise sums differ "
+                                       "between launches")
                 if dtype == torch.bfloat16:
                     errs["depthwise"] = max(errs["depthwise"], e)
                 log("3 kernels", f"depthwise {s['name']} {dtype} x=({BATCH},"
@@ -331,7 +342,8 @@ def phase_kernels(model, dw_sites, up_sites) -> dict:
                     f"{s['size']}x{s['o']}: max|y-plain|={e:.3g}")
     log("3 kernels", f"ok: {len(dw_sites)} depthwise and {len(up_sites)} "
                      "upsample_conv sites agree with the plain versions in "
-                     f"f32 and bf16; (rtol, atol): {TOL}")
+                     f"f32 and bf16, depthwise sums bitwise equal across "
+                     f"launches; (rtol, atol): {TOL}")
     return errs
 
 
@@ -435,7 +447,17 @@ def phase_serve(model) -> tuple:
     return serve, frames, launches
 
 
-def phase_time(model, serve, frames, card, dw_sites, up_sites) -> dict:
+def composition(x: torch.Tensor, k: torch.Tensor, size) -> torch.Tensor:
+    """The upsample-conv as two cuDNN-era PyTorch calls, channels-last: a
+    yardstick for the kernel's time only (the port never calls it)."""
+    xc = x.permute(0, 3, 1, 2)  # NHWC memory, channels-last NCHW view
+    up = F.interpolate(xc, size=size, mode="bilinear", align_corners=True)
+    w = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(up, w, padding=2)
+
+
+def phase_time(model, serve, frames, card, dw_sites, up_sites,
+               einsum_sites) -> dict:
     for _ in range(WARMUP):
         serve(frames)
     torch.cuda.synchronize()
@@ -471,14 +493,21 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites) -> dict:
         + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    res = {"depthwise": dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0,
-                             grouped_ms=0.0),
-           "upsample_conv": dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)}
+    res = {"depthwise": dict(ms=0.0, graph_ms=0.0, plain_ms=0.0, bytes=0.0,
+                             ops=0.0, grouped_ms=0.0),
+           "upsample_conv": dict(ms=0.0, graph_ms=0.0, plain_ms=0.0,
+                                 bytes=0.0, ops=0.0, composition_ms=0.0)}
     with torch.inference_mode():
+        # ms: CUDA events over a loop of eager wrapper calls, as the first
+        # versions of these kernels were timed (what a serving forward
+        # pays, host included where the host is slower than the kernel);
+        # graph: the same calls replayed from a CUDA graph, the device time
+        # alone.
         for s in dw_sites:
             args = dw_inputs(s, torch.bfloat16, gen)
             kw = dict(stride=s["stride"], padding=s["pad"])
             ms = cuda_ms(lambda: depthwise_bn_swish(*args, **kw))
+            graph = graph_ms(lambda: depthwise_bn_swish(*args, **kw))
             plain = cuda_ms(lambda: depthwise_bn_swish_plain(*args, **kw))
             (pt, pb), (pl, pr) = s["pad"]
             xp = F.pad(args[0], (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
@@ -488,37 +517,70 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites) -> dict:
             tb, to = dw_bound(s)
             r = res["depthwise"]
             r["ms"] += ms
+            r["graph_ms"] += graph
             r["plain_ms"] += plain
             r["bytes"] += tb
             r["ops"] += to
             r["grouped_ms"] += grouped
-            log("5 time", f"depthwise {s['name']} ({BATCH},{s['hw'][0]},"
-                f"{s['hw'][1]},{s['c']}) k{s['k']} s{s['stride']}: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {max(tb, to):.4f} "
-                f"ms ({'bytes' if tb >= to else 'operations'}, kernel "
-                f"{ms / max(tb, to):.1f}x), cuDNN grouped conv alone "
+            gbs = tb * HBM_BYTES_PER_S / 1e9 / ms
+            log("5 time", f"{card}: depthwise {s['name']} ({BATCH},"
+                f"{s['hw'][0]},{s['hw'][1]},{s['c']}) k{s['k']} "
+                f"s{s['stride']}: kernel {ms:.4f} ms ({gbs:.0f} GB/s; "
+                f"CUDA graph {graph:.4f} ms), plain "
+                f"{plain:.4f} ms, bound {max(tb, to):.4f} ms "
+                f"({'bytes' if tb >= to else 'operations'}; share of bound "
+                f"reached {max(tb, to) / ms:.3f}), cuDNN grouped conv alone "
                 f"(partial yardstick) {grouped:.4f} ms")
         for s in up_sites:
             x, k = up_inputs(s, model, torch.bfloat16, gen)
             ms = cuda_ms(lambda: upsample_conv(x, k, s["size"]))
+            graph = graph_ms(lambda: upsample_conv(x, k, s["size"]))
             plain = cuda_ms(lambda: upsample_conv_plain(x, k, s["size"]))
+            comp = cuda_ms(lambda: composition(x, k, s["size"]))
             tb, to = up_bound(s)
             r = res["upsample_conv"]
             r["ms"] += ms
+            r["graph_ms"] += graph
             r["plain_ms"] += plain
             r["bytes"] += tb
             r["ops"] += to
-            log("5 time", f"upsample_conv {s['name']} ({BATCH},{s['hw'][0]},"
-                f"{s['hw'][1]},{s['c']}) -> {s['size']}x{s['o']}: kernel "
-                f"{ms:.4f} ms ({to * BF16_OPS_PER_S / ms / 1e12:.1f} TFLOP/s), "
-                f"plain {plain:.4f} ms, bound {max(tb, to):.4f} "
-                f"ms ({'bytes' if tb >= to else 'operations'})")
+            r["composition_ms"] += comp
+            log("5 time", f"{card}: upsample_conv {s['name']} ({BATCH},"
+                f"{s['hw'][0]},{s['hw'][1]},{s['c']}) -> {s['size']}x"
+                f"{s['o']}: kernel {ms:.4f} ms "
+                f"({to * BF16_OPS_PER_S / ms / 1e12:.1f} TFLOP/s; CUDA "
+                f"graph {graph:.4f} ms), composition_ms {comp:.4f} "
+                "(F.interpolate + cuDNN conv2d, channels-last bf16; "
+                f"yardstick), plain {plain:.4f} ms, "
+                f"bound {max(tb, to):.4f} ms ("
+                f"{'bytes' if tb >= to else 'operations'}; share of bound "
+                f"reached {max(tb, to) / ms:.3f})")
+        # ROADMAP A15: the kernel where should_fuse picks the einsum form.
+        for s in einsum_sites:
+            x, k = up_inputs(s, model, torch.bfloat16, gen)
+            f = s["o"] // 2
+            k1, k2 = k[..., :f].contiguous(), k[..., f:].contiguous()
+            ms = graph_ms(lambda: upsample_conv(x, k, s["size"]))
+            einsum = graph_ms(lambda: upsample_conv_pair(x, k1, k2,
+                                                         s["size"]))
+            _, to = up_bound(s)
+            log("5 time", f"{card}: einsum site {s['name']} ({BATCH},"
+                f"{s['hw'][0]},{s['hw'][1]},{s['c']}) -> {s['size']}x"
+                f"{s['o']}: upsample_conv kernel {ms:.4f} ms "
+                f"({to * BF16_OPS_PER_S / ms / 1e12:.1f} TFLOP/s), einsum "
+                f"form (the model's route) {einsum:.4f} ms (both CUDA-graph "
+                "replay)")
     for name, r in res.items():
-        log("5 time", f"{card}: {name} per forward: kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms, bound "
-            f"{max(r['bytes'], r['ops']):.3f} ms")
+        bound = max(r["bytes"], r["ops"])
+        log("5 time", f"{card}: {name} per forward: kernel {r['ms']:.3f} ms "
+            f"(CUDA events over eager calls; CUDA-graph replay "
+            f"{r['graph_ms']:.3f}), plain {r['plain_ms']:.3f} ms, bound "
+            f"{bound:.3f} ms, share of bound reached {bound / r['ms']:.3f}")
     log("5 time", f"{card}: cuDNN grouped conv alone over the depthwise "
         f"sites (partial yardstick): {res['depthwise']['grouped_ms']:.3f} ms")
+    log("5 time", f"{card}: F.interpolate + cuDNN conv2d over the "
+        f"upsample_conv sites (yardstick): composition_ms "
+        f"{res['upsample_conv']['composition_ms']:.3f}")
     return res
 
 
@@ -798,7 +860,8 @@ def phase_train_time(card, state, step, batch) -> dict:
         ms = graph_ms(kernel)
         call_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         tb, to = bound
-        res[name] = dict(ms=ms, plain_ms=plain_ms, bytes=tb, ops=to)
+        res[name] = dict(ms=ms, graph_ms=ms, plain_ms=plain_ms, bytes=tb,
+                         ops=to)
         log("6 train", f"{card}: {name} ({TRAIN_BATCH},{LOSS_HW[0]},"
             f"{LOSS_HW[1]}) bf16 pred: kernel {ms:.4f} ms (CUDA graph), "
             f"wrapper call {call_ms:.4f} ms (CUDA events), plain "
@@ -819,14 +882,15 @@ def main() -> int:
     phase_build()
     card = phase_card()
     model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
-    dw_sites, up_sites = main_path_sites(model)
+    dw_sites, up_sites, einsum_sites = main_path_sites(model)
     if (len(dw_sites), len(up_sites)) != (16, 4):
         raise RuntimeError(f"found {len(dw_sites)} depthwise and "
                            f"{len(up_sites)} direct upsample-conv sites")
     errs = phase_kernels(model, dw_sites, up_sites)
     errs.update(phase_loss_kernels())
     serve, frames, launches = phase_serve(model)
-    res = phase_time(model, serve, frames, card, dw_sites, up_sites)
+    res = phase_time(model, serve, frames, card, dw_sites, up_sites,
+                     einsum_sites)
     del serve, frames
     phase_train_fixture()
     state, step, batch, train_launches = phase_train_steps()
@@ -834,6 +898,10 @@ def main() -> int:
     launches.update({k: train_launches[k] for k in ("fused_depth_loss",
                                                     "fused_depth_loss_bwd")})
 
+    # ms: each kernel timed as its first version was, so that a change of
+    # method moves no figure: CUDA events over eager calls for the serving
+    # kernels, CUDA-graph replay for the loss pair; graph_ms: the replay,
+    # the device time alone, for all four.
     kernels = []
     for name, key, source, replaces in (
             ("depthwise_bn_swish", "depthwise",
@@ -853,7 +921,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[key], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
+            "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
     print(card)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exports plain C functions, so ``nvcc`` builds it in
 seconds without PyTorch's headers. The shared library goes into
 ``efficientdepthestimation_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is rebuilt.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt.
 Nothing is built at import: the first call that needs a kernel builds it, and
 a failed build raises.
 """
@@ -43,7 +44,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

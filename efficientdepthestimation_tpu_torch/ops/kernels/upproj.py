@@ -2,9 +2,11 @@
 
 Counterpart of ``efficientdepthestimation_tpu/ops/pallas/upproj.py``.
 ``upsample_conv`` launches the hand-written CUDA kernel in
-``csrc/upsample_conv.cu`` on CUDA tensors; the upsampled intermediate never
-reaches device memory. On CPU tensors it runs the plain PyTorch version
-``upsample_conv_plain``; it never falls back from one to the other. It is a
+``csrc/upsample_conv.cu`` on CUDA tensors (bf16 on the tensor cores, with
+the output tile from ``mma_tile``; f32 on the CUDA cores); the upsampled
+intermediate never reaches device memory. On CPU tensors it runs the plain
+PyTorch version ``upsample_conv_plain``; it never falls back from one to
+the other. It is a
 ``torch.autograd.Function`` whose backward is ``upsample_conv_vjp``, the VJP
 of the plain composition ``conv2d(resize(x), K)`` in x's dtype, as JAX's
 ``_bwd`` takes it (``upproj.py:197-200``).
@@ -25,10 +27,22 @@ from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
 
-__all__ = ["upsample_conv", "upsample_conv_plain", "upsample_conv_vjp"]
+__all__ = ["upsample_conv", "upsample_conv_plain", "upsample_conv_vjp",
+           "mma_tile"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TAPS = 5
+
+
+@functools.lru_cache(maxsize=None)
+def mma_tile(h: int, w: int, c: int, o: int) -> tuple[int, int]:
+    """(th, tw): the bf16 kernel's output tile for an (h, w) output, as the
+    kernel's source picks it (``choose_tile`` in csrc/upsample_conv.cu),
+    once a shape."""
+    tile = (ctypes.c_int * 2)()
+    if _lib().ede_upsample_conv_tile(h, w, c, o, tile):
+        raise ValueError(f"upsample_conv: no tile fits C={c}, O={o}")
+    return tile[0], tile[1]
 
 
 def upsample_conv_plain(x: torch.Tensor, kernels: torch.Tensor,
@@ -46,8 +60,11 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("upsample_conv")
     fn = lib.ede_upsample_conv
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.ede_upsample_conv_tile.argtypes = ([ctypes.c_int] * 4
+                                           + [ctypes.POINTER(ctypes.c_int)])
+    lib.ede_upsample_conv_tile.restype = ctypes.c_int
     return lib
 
 
@@ -102,13 +119,14 @@ def _forward(x: torch.Tensor, kernels: torch.Tensor,
     if min(n, c, o, h, w) <= 0:
         raise ValueError(f"upsample_conv: empty shape x {tuple(x.shape)}, "
                          f"size {(h, w)}")
+    th, tw = mma_tile(h, w, c, o) if x.dtype == torch.bfloat16 else (0, 0)
     y = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ede_upsample_conv(_DTYPES[x.dtype], x.data_ptr(),
                                     kernels.data_ptr(), y.data_ptr(),
-                                    n, hs, ws, c, h, w, o, stream)
+                                    n, hs, ws, c, h, w, o, th, tw, stream)
     build.check(lib, err, "upsample_conv")
     upsample_conv.launches += 1
     return y

@@ -19,6 +19,7 @@ from efficientdepthestimation_tpu_torch.apps.common import (
 from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
     synthetic_train_set,
 )
+from efficientdepthestimation_tpu_torch.ops.kernels import depthwise
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
     depthwise_bn_swish_plain,
@@ -31,6 +32,7 @@ from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
     fused_depth_loss_fwd_plain,
     masked_total,
 )
+from efficientdepthestimation_tpu_torch.ops.kernels import upproj
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
     upsample_conv,
     upsample_conv_plain,
@@ -79,6 +81,223 @@ def test_kernels_match_plain_on_card(dtype, tol):
     torch.testing.assert_close(upsample_conv(x, k, (18, 22)).float(),
                                upsample_conv_plain(x, k, (18, 22)).float(),
                                rtol=tol, atol=tol)
+
+
+# Kernel vs plain version on the card, as chip_smoke.TOL: sums in another
+# order, so f32 y to f32 rounding, bf16 y within one bf16 step; the SE sums
+# add up to 17,328 O(1) terms, hence their absolute floor.
+DW_TOL = {torch.float32: dict(y=(1e-4, 1e-4), sums=(1e-4, 1e-2)),
+          torch.bfloat16: dict(y=(1e-2, 1e-3), sums=(1e-4, 1e-2))}
+UP_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+# The depthwise sites of ENB0-HU and ENB4-HU at 228x304 (input hw, C, k,
+# stride, padding), each once; then ragged ones: C not a multiple of 8,
+# stride 2, 1x1 and 3x5 planes.
+_S1K3, _S1K5 = ((1, 1), (1, 1)), ((2, 2), (2, 2))
+_S2K3, _S2K5 = ((0, 1), (0, 1)), ((1, 2), (1, 2))
+DW_SITES = [
+    ((114, 152), 32, 3, 1, _S1K3), ((114, 152), 96, 3, 2, _S2K3),
+    ((57, 76), 144, 3, 1, _S1K3), ((57, 76), 144, 5, 2, _S2K5),
+    ((28, 38), 240, 5, 1, _S1K5), ((28, 38), 240, 3, 2, _S2K3),
+    ((14, 19), 480, 3, 1, _S1K3), ((14, 19), 480, 5, 1, _S1K5),
+    ((14, 19), 672, 5, 1, _S1K5), ((14, 19), 672, 5, 2, _S2K5),
+    ((7, 9), 1152, 5, 1, _S1K5), ((7, 9), 1152, 3, 1, _S1K3),
+    ((114, 152), 48, 3, 1, _S1K3), ((114, 152), 24, 3, 1, _S1K3),
+    ((114, 152), 144, 3, 2, _S2K3), ((57, 76), 192, 3, 1, _S1K3),
+    ((57, 76), 192, 5, 2, _S2K5), ((28, 38), 336, 5, 1, _S1K5),
+    ((28, 38), 336, 3, 2, _S2K3), ((14, 19), 672, 3, 1, _S1K3),
+    ((14, 19), 960, 5, 1, _S1K5), ((14, 19), 960, 5, 2, _S2K5),
+    ((7, 9), 1632, 5, 1, _S1K5), ((7, 9), 1632, 3, 1, _S1K3),
+    ((7, 9), 2688, 3, 1, _S1K3),
+    ((3, 5), 12, 3, 1, _S1K3), ((3, 5), 76, 5, 2, _S2K5),
+    ((1, 1), 12, 5, 1, _S1K5), ((1, 1), 76, 3, 2, _S1K3),
+    ((9, 11), 12, 3, 2, _S2K3), ((3, 5), 76, 3, 1, _S1K3),
+]
+# The upsample-conv sites (input hw, output hw, C, O): the direct sites of
+# ENB0-HU and ENB4-HU, their einsum sites (D.up1, MFF.up2-4, timed in
+# chip_smoke.py), then ragged ones: C = 13, O = 7 and 36, odd sizes, a size
+# that is not 2x, a 1x1 input.
+UP_SITES = [
+    ((14, 19), (28, 38), 80, 80), ((28, 38), (57, 76), 40, 40),
+    ((57, 76), (114, 152), 20, 20), ((57, 76), (114, 152), 24, 32),
+    ((14, 19), (28, 38), 112, 112), ((28, 38), (57, 76), 56, 56),
+    ((57, 76), (114, 152), 28, 28), ((57, 76), (114, 152), 32, 32),
+    ((7, 9), (14, 19), 160, 160), ((28, 38), (114, 152), 40, 32),
+    ((14, 19), (114, 152), 80, 32), ((7, 9), (114, 152), 320, 32),
+    ((7, 9), (14, 19), 224, 224), ((7, 9), (114, 152), 448, 32),
+    ((9, 11), (18, 22), 13, 7), ((9, 11), (17, 23), 13, 36),
+    ((5, 7), (13, 9), 13, 7), ((1, 1), (2, 3), 13, 36),
+    ((1, 1), (1, 1), 8, 8), ((6, 5), (6, 5), 16, 136),
+]
+
+
+def _site_dw_args(dtype, hw, c, k, b=2, seed=0, offset=0):
+    """Depthwise inputs on the card; ``offset`` elements shift x off its
+    allocation's 16-byte alignment."""
+    g = torch.Generator().manual_seed(seed)
+    n = b * hw[0] * hw[1] * c
+    x = torch.randn(n + offset, generator=g)[offset:].view(b, *hw, c)
+    taps = torch.randn(k, k, c, generator=g) / k
+    scale = torch.rand(c, generator=g) + 0.5
+    bias = torch.randn(c, generator=g)
+    x = torch.empty(n + offset, dtype=dtype, device="cuda")[offset:].view(
+        b, *hw, c).copy_(x)
+    return [x, taps.to(dtype).cuda(), scale.cuda(), bias.cuda()]
+
+
+def _site_up_args(dtype, in_hw, c, o, b=2, seed=0, offset=0):
+    g = torch.Generator().manual_seed(seed)
+    n = b * in_hw[0] * in_hw[1] * c
+    x = torch.randn(n, generator=g).view(b, *in_hw, c)
+    k = torch.randn(5, 5, c, o, generator=g) / (5 * c ** 0.5)
+    x = torch.empty(n + offset, dtype=dtype, device="cuda")[offset:].view(
+        b, *in_hw, c).copy_(x)
+    return x, k.to(dtype).cuda()
+
+
+def _check_dw(args, dtype, stride, pad):
+    tol = DW_TOL[dtype]
+    y, sums = depthwise_bn_swish(*args, stride=stride, padding=pad)
+    y_ref, sums_ref = depthwise_bn_swish_plain(*args, stride, pad)
+    assert y.dtype == dtype and y.shape == y_ref.shape
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol["y"][0],
+                               atol=tol["y"][1])
+    torch.testing.assert_close(sums, sums_ref, rtol=tol["sums"][0],
+                               atol=tol["sums"][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c,k,stride,pad", DW_SITES)
+def test_depthwise_matches_plain_at_sites(dtype, hw, c, k, stride, pad):
+    _need_card()
+    _check_dw(_site_dw_args(dtype, hw, c, k), dtype, stride, pad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_hw,out_hw,c,o", UP_SITES)
+def test_upsample_conv_matches_plain_at_sites(dtype, in_hw, out_hw, c, o):
+    _need_card()
+    x, k = _site_up_args(dtype, in_hw, c, o)
+    y = upsample_conv(x, k, out_hw)
+    assert y.dtype == dtype and y.shape == (2, *out_hw, o)
+    rtol, atol = UP_TOL[dtype]
+    torch.testing.assert_close(y.float(),
+                               upsample_conv_plain(x, k, out_hw).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_unaligned_tensors(dtype):
+    """x one element off 16-byte alignment: the scalar loads, same values."""
+    _need_card()
+    for hw, c, k, stride, pad in (((14, 19), 480, 5, 1, _S1K5),
+                                  ((9, 11), 12, 3, 2, _S2K3)):
+        _check_dw(_site_dw_args(dtype, hw, c, k, offset=1), dtype, stride,
+                  pad)
+    x, k = _site_up_args(dtype, (14, 19), 80, 80, offset=1)
+    k = torch.empty(k.numel() + 2, dtype=dtype, device="cuda")[2:].view(
+        k.shape).copy_(k)
+    rtol, atol = UP_TOL[dtype]
+    torch.testing.assert_close(upsample_conv(x, k, (28, 38)).float(),
+                               upsample_conv_plain(x, k, (28, 38)).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_sums_are_deterministic(dtype):
+    """The last block adds the partials in tile order: the same bits from
+    launch to launch (and the counters are left at 0 for the next)."""
+    _need_card()
+    for hw, c, k, stride, pad in DW_SITES[:12]:
+        args = _site_dw_args(dtype, hw, c, k, b=4, seed=3)
+        y1, s1 = depthwise_bn_swish(*args, stride=stride, padding=pad)
+        y2, s2 = depthwise_bn_swish(*args, stride=stride, padding=pad)
+        assert torch.equal(s1, s2) and torch.equal(y1, y2)
+
+
+def test_depthwise_sums_hold_across_streams_and_graphs():
+    """Launches on two streams at once, and a launch captured in a CUDA
+    graph, keep their own reduction counters: their sums are the bits of a
+    launch alone, also after an eager batch larger than the counters."""
+    _need_card()
+    calls = [(_site_dw_args(torch.bfloat16, (14, 19), 480, 3, b=4, seed=5),
+              dict(stride=1, padding=_S1K3)),
+             (_site_dw_args(torch.bfloat16, (7, 9), 1152, 5, b=4, seed=6),
+              dict(stride=1, padding=_S1K5))]
+    refs = [depthwise_bn_swish(*args, **kw)[1] for args, kw in calls]
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    sums = [[], []]
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(20):
+        for i, (s, (args, kw)) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(s):
+                sums[i].append(depthwise_bn_swish(*args, **kw)[1])
+    torch.cuda.synchronize()
+    for ref, got in zip(refs, sums):
+        assert all(torch.equal(ref, g) for g in got)
+
+    (args, kw), ref = calls[0], refs[0]
+    streams[0].wait_stream(main)
+    with torch.cuda.stream(streams[0]):
+        depthwise_bn_swish(*args, **kw)
+    main.wait_stream(streams[0])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, graph_sums = depthwise_bn_swish(*args, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph_sums, ref)
+    wide = _site_dw_args(torch.bfloat16, (1, 1), 12, 5, b=2000, seed=7)
+    _check_dw(wide, torch.bfloat16, 1, _S1K5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph_sums, ref)
+    assert torch.equal(depthwise_bn_swish(*args, **kw)[1], ref)
+
+
+def _dw_out_hw(hw, k, stride, pad):
+    (pt, pb), (pl, pr) = pad
+    return ((hw[0] + pt + pb - k) // stride + 1,
+            (hw[1] + pl + pr - k) // stride + 1)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("hw,c,k,stride,pad", DW_SITES)
+def test_depthwise_launch_config_covers_and_fits(hw, c, k, stride, pad,
+                                                 itemsize):
+    """The kernel's launch shape, from its source: 16-byte vectors where C
+    allows, whole runs, a tile within the output, and 16-byte lanes of a
+    multiple of 8 unpadded (no bank conflict to avoid)."""
+    _need_card()
+    oh, ow = _dw_out_hw(hw, k, stride, pad)
+    run = 2 if (k, stride) == (5, 2) else 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (2, 128):
+        vec, cv, lanes, ps, tr, tc, tpb = depthwise.launch_config(
+            b, oh, ow, c, k, stride, itemsize, True, sms)
+        assert vec == (16 // itemsize if c % (16 // itemsize) == 0 else 1)
+        assert cv * lanes <= 256 and ps >= cv * vec
+        assert tc % run == 0 and lanes <= tr * tc // run
+        assert tr <= oh and tc < ow + run
+        assert 1 <= tpb <= -(-oh // tr) * -(-ow // tc)
+        if vec > 1 and cv % 8 == 0:
+            assert ps == cv * vec
+    # an unaligned x takes the scalar kernel
+    assert depthwise.launch_config(2, oh, ow, c, k, stride, itemsize, False,
+                                   sms)[0] == 1
+
+
+@pytest.mark.parametrize("in_hw,out_hw,c,o", UP_SITES)
+def test_upsample_conv_tile_covers_and_fits(in_hw, out_hw, c, o):
+    """The bf16 kernel's tile, from its source, lies within the output and
+    within a block's 256 GEMM rows."""
+    _need_card()
+    h, w = out_hw
+    th, tw = upproj.mma_tile(h, w, c, o)
+    assert 1 <= th <= h and 1 <= tw <= w and th * tw <= 256
 
 
 def test_launch_counters_count_card_launches():

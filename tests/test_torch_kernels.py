@@ -19,7 +19,10 @@ from efficientdepthestimation_tpu.ops import resize as jresize
 from efficientdepthestimation_tpu.ops.pallas.depthwise import (
     depthwise_bn_swish as jax_depthwise_bn_swish,
 )
-from efficientdepthestimation_tpu.ops.pallas.upproj import upsample_conv_pallas
+from efficientdepthestimation_tpu.ops.pallas.upproj import (
+    _padded_matrix,
+    upsample_conv_pallas,
+)
 
 from efficientdepthestimation_tpu_torch.ops import conv, fused, resize
 from efficientdepthestimation_tpu_torch.ops.kernels import build
@@ -225,3 +228,24 @@ def test_cached_constants_serve_autograd_after_inference():
     xg = x.clone().requires_grad_()
     resize.resize_bilinear_align_corners(xg, (6, 7)).sum().backward()
     assert xg.grad is not None and xg.grad.shape == x.shape
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((14, 19), (28, 38)),
+                                          ((57, 76), (114, 152)),
+                                          ((5, 7), (13, 9)),
+                                          ((1, 1), (2, 3))])
+def test_upsample_conv_plain_is_the_padded_matrix_form(in_hw, out_hw):
+    """The function the kernel computes, with the conv's zero border folded
+    into zero rows of the interpolation matrices as in the Pallas kernel
+    (JAX ``_padded_matrix``), is the plain version's, in f32."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, *in_hw, 13)).astype(np.float32)
+    k = (0.2 * rng.standard_normal((5, 5, 13, 7))).astype(np.float32)
+    a = _padded_matrix(in_hw[0], out_hw[0], 2).astype(np.float64)
+    b = _padded_matrix(in_hw[1], out_hw[1], 2).astype(np.float64)
+    up = np.einsum("Hh,nhwc,Ww->nHWc", a, x.astype(np.float64), b)
+    h, w = out_hw
+    ref = sum(np.einsum("nhwc,co->nhwo", up[:, dp:dp + h, dq:dq + w],
+                        k[dp, dq]) for dp in range(5) for dq in range(5))
+    y = upsample_conv_plain(torch.from_numpy(x), torch.from_numpy(k), out_hw)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=1e-4, atol=1e-4)
