@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of ENB0-HU serving and training on one card.
+"""Drive the PyTorch/CUDA port on one card: ENB0-HU serving and training,
+and serving of the other released configurations.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -11,7 +12,9 @@ Phases, one output line each (more for the per-site detail):
      registers, shared memory and spills (``-Xptxas -v``);
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at every shape the
-     ENB0-HU serving path gives it, at batch 128, in bf16 and f32 (the
+     ENB0-HU serving path gives it, and at the shapes only ENB4-HU (32
+     depthwise and 4 upsample-conv sites) and RN50-HU (D.up4, K larger
+     than shared memory) give it, at batch 128, in bf16 and f32 (the
      depthwise SE sums bitwise equal across launches), and the loss kernel
      pair at the training shape (64, 114, 152);
   4. load ``e2e/ENB0-HU-synthetic.ede``, check the f32 forward against the
@@ -19,22 +22,36 @@ Phases, one output line each (more for the per-site detail):
      through ``make_serving_fn`` and check shape, finiteness, kernel
      launches (16 depthwise + 4 upsample-conv per forward) and agreement
      with the fixture;
-  5. time steady-state frames/s, the stages of the forward, each kernel
-     and its plain version per site (the kernel as CUDA events over a loop
-     of eager calls, and as a CUDA-graph replay, its device time alone; its GB/s or TFLOP/s and the share of its bound; beside the
-     upsample-conv kernel, cuDNN's interpolate + conv as a yardstick, and
-     the kernel at the four einsum-form sites beside that form), and peak
-     device memory;
+  5. time steady-state frames/s, the card's kernel busy time and idle
+     share in a serving call (``torch.profiler``), the stages of the
+     forward (CUDA events, and their kernels' busy time), each kernel and
+     its plain version per site (the kernel as CUDA events over a loop of
+     eager calls, and as a CUDA-graph replay, its device time alone; its
+     GB/s or TFLOP/s and the share of its bound; beside the upsample-conv
+     kernel, cuDNN's interpolate + conv as a yardstick, and the kernel at
+     the four einsum-form sites beside that form), and peak device memory;
   6. train: one f32 step against the JAX training fixture; bf16 steps at
      batch 64 through ``make_train_step`` (launches of one step: 1 loss
      forward, 1 loss backward, 4 upsample-conv, 0 depthwise; a finite loss
      that falls over 10 steps on a fixed batch; weights and BN statistics
      move); then images/s, the device ms of the step's phases, each loss
-     kernel beside its bound and plain version, and peak device memory.
+     kernel beside its bound and plain version, and peak device memory;
+  7. ENB0-LR from ``e2e/ENB0-LR-synthetic.ede`` (a MidasNet): the f32
+     forward against its JAX fixture, bf16 serving of phase 4's 128 frames
+     (shape, finiteness, 16 depthwise + 0 upsample-conv launches,
+     agreement with the fixture), then as phase 5: frames/s, busy time and
+     idle share, the stages, peak memory;
+  8. ENB4-HU, ENB4-LR, RN50-HU and RN50-LR at full width and depth with
+     seeded random weights (``models.common.randomize_``): bf16 serving of
+     the same frames with each one's exact launches, its bf16 output
+     against its f32 forward on the card, frames/s, busy time and idle
+     share, the stages, peak memory, and the kernels' times at the shapes
+     ENB4-HU and RN50-HU give them.
 
-It prints a JSON line of per-kernel figures, then, as its last line,
-``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
-non-zero without that line; so does a machine without a CUDA card.
+It prints a JSON line of per-configuration figures, a JSON line of
+per-kernel figures, then, as its last line, ``{"ok": true, "device":
+{...}}``. Any failure raises, so the script exits non-zero without that
+line; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
@@ -65,8 +82,13 @@ from efficientdepthestimation_tpu_torch.data.transforms import (
     eval_preprocess_image_only,
     train_preprocess,
 )
+from efficientdepthestimation_tpu_torch.models.common import randomize_
 from efficientdepthestimation_tpu_torch.models.efficientnet import MBConvBlock
-from efficientdepthestimation_tpu_torch.models.hu2018 import UpProjection
+from efficientdepthestimation_tpu_torch.models.hu2018 import (
+    HuDepthModel,
+    UpProjection,
+)
+from efficientdepthestimation_tpu_torch.models.registry import build_model
 from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
     upsample_conv_pair,
@@ -105,6 +127,20 @@ CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-HU-synthetic.ede")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_enb0_hu.npz")
 TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                              "torch_train_enb0_hu.npz")
+LR_CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-LR-synthetic.ede")
+LR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_enb0_lr.npz")
+# The configurations phase 8 serves with random weights: (encoder, decoder,
+# randomize_ seed, launches of one forward: depthwise, upsample-conv).
+RANDOM_CONFIGS = {
+    "ENB4-HU": ("efficientnet-b4", "hu2018", 4, (32, 4)),
+    "ENB4-LR": ("efficientnet-b4", "lasinger2019", 5, (32, 0)),
+    "RN50-HU": ("resnet50", "hu2018", 6, (0, 1)),
+    "RN50-LR": ("resnet50", "lasinger2019", 7, (0, 0)),
+}
+# The configurations that give the kernels shapes ENB0-HU does not
+# (ENB4-LR's encoder is ENB4-HU's).
+NEW_SHAPE_CONFIGS = ("ENB4-HU", "RN50-HU")
+F32_CHECK_FRAMES = 8  # frames of phase 8's f32 reference forward
 BATCH = 128
 TRAIN_BATCH = 64
 TRAIN_FIXTURE_SEEDS = (0, 1)  # tests/make_torch_train_fixture.py
@@ -141,6 +177,17 @@ TOL = {
 # a CPU run of the port in bf16 shows max 0.21 m, mean 0.015 m.
 F32_MODEL_TOL = dict(rtol=1e-3, atol=1e-3)
 BF16_MODEL_MAX_ABS, BF16_MODEL_MEAN_ABS = 0.5, 0.05
+# ENB0-LR's bf16 serving against its JAX f32 fixture (depths 1.1-3.4 m):
+# this script's phase 7 run on the CPU shows max 0.030 m, mean 0.0034 m;
+# about 3x that for the card's other summation orders (as
+# tests/test_torch_slice_lr.py).
+BF16_LR_MAX_ABS, BF16_LR_MEAN_ABS = 0.1, 0.01
+# Phase 8's bf16 serving against the f32 forward of the same random model,
+# relative to the f32 output's largest |value| (the random weights set the
+# output's scale, 0.5-10 here): this script's phase 8 run on the CPU
+# shows max 0.011-0.035 and mean 0.0022-0.0101; about 3x that for the
+# card.
+BF16_RANDOM_MAX_REL, BF16_RANDOM_MEAN_REL = 0.15, 0.03
 # Loss kernel pair vs its plain versions, same inputs on the card.
 #   sums: per-image sums of 17,328 O(1) terms, added in another order
 #         (tiles, warps) than the plain reduction, and the normal term's
@@ -200,12 +247,13 @@ def main_path_sites(model) -> tuple[list[dict], list[dict], list[dict]]:
     forward at batch 1 on the card, with the module's own weights; and the
     UpProjection sites that take the einsum form instead of the kernel."""
     dw_sites, up_sites, einsum_sites = [], [], []
+    names = {m: n for n, m in model.named_modules()}
 
     def on_block(block, args):
         (x,) = args
         _, h, w, cin = x.shape
         dw_sites.append(dict(
-            name=f"E._blocks.{len(dw_sites)}", hw=(h, w), c=cin * block.expand,
+            name=names[block], hw=(h, w), c=cin * block.expand,
             k=block._depthwise_conv.weight.shape[-1], stride=block.stride,
             pad=block.pad, block=block))
 
@@ -217,7 +265,6 @@ def main_path_sites(model) -> tuple[list[dict], list[dict], list[dict]]:
             module=module, hw=tuple(x.shape[1:3]), c=x.shape[-1],
             size=tuple(size), o=2 * module.features))
 
-    names = {m: n for n, m in model.named_modules()}
     hooks = [m.register_forward_pre_hook(on_block) for m in model.modules()
              if isinstance(m, MBConvBlock)]
     hooks += [m.register_forward_pre_hook(on_up) for m in model.modules()
@@ -304,7 +351,7 @@ def phase_card() -> str:
     return out
 
 
-def phase_kernels(model, dw_sites, up_sites) -> dict:
+def phase_kernels(model, dw_sites, up_sites, label: str = "ENB0-HU") -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {"depthwise": 0.0, "upsample_conv": 0.0}
     with torch.inference_mode():
@@ -324,9 +371,9 @@ def phase_kernels(model, dw_sites, up_sites) -> dict:
                                        "between launches")
                 if dtype == torch.bfloat16:
                     errs["depthwise"] = max(errs["depthwise"], e)
-                log("3 kernels", f"depthwise {s['name']} {dtype} x=({BATCH},"
-                    f"{s['hw'][0]},{s['hw'][1]},{s['c']}) k{s['k']} "
-                    f"s{s['stride']}: max|y-plain|={e:.3g} "
+                log("3 kernels", f"{label} depthwise {s['name']} {dtype} "
+                    f"x=({BATCH},{s['hw'][0]},{s['hw'][1]},{s['c']}) "
+                    f"k{s['k']} s{s['stride']}: max|y-plain|={e:.3g} "
                     f"max|sums-plain|={es:.3g}")
             tol = TOL[("upsample_conv", dtype)]
             for s in up_sites:
@@ -337,13 +384,14 @@ def phase_kernels(model, dw_sites, up_sites) -> dict:
                 e = check_close(s["name"], y, y_ref, tol["y"])
                 if dtype == torch.bfloat16:
                     errs["upsample_conv"] = max(errs["upsample_conv"], e)
-                log("3 kernels", f"upsample_conv {s['name']} {dtype} "
-                    f"x=({BATCH},{s['hw'][0]},{s['hw'][1]},{s['c']}) -> "
-                    f"{s['size']}x{s['o']}: max|y-plain|={e:.3g}")
-    log("3 kernels", f"ok: {len(dw_sites)} depthwise and {len(up_sites)} "
-                     "upsample_conv sites agree with the plain versions in "
-                     f"f32 and bf16, depthwise sums bitwise equal across "
-                     f"launches; (rtol, atol): {TOL}")
+                log("3 kernels", f"{label} upsample_conv {s['name']} "
+                    f"{dtype} x=({BATCH},{s['hw'][0]},{s['hw'][1]},"
+                    f"{s['c']}) -> {s['size']}x{s['o']}: "
+                    f"max|y-plain|={e:.3g}")
+    log("3 kernels", f"ok: {label}'s {len(dw_sites)} depthwise and "
+                     f"{len(up_sites)} upsample_conv sites agree with the "
+                     "plain versions in f32 and bf16, depthwise sums bitwise "
+                     f"equal across launches; (rtol, atol): {TOL}")
     return errs
 
 
@@ -404,6 +452,30 @@ def phase_loss_kernels() -> dict:
     return errs
 
 
+def serve_counted(serve, frames, name: str, expected: tuple[int, int]
+                  ) -> tuple[torch.Tensor, dict]:
+    """One serving call with the serving kernels' counts set to 0 just
+    before it and read just after; the call must launch each kernel
+    exactly ``expected`` = (depthwise, upsample-conv) times and give finite
+    depth at frame size."""
+    counters = {"depthwise_bn_swish": depthwise_bn_swish,
+                "upsample_conv": upsample_conv}
+    for c in counters.values():
+        c.launches = 0
+    out = serve(frames)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if tuple(launches.values()) != expected:
+        raise RuntimeError(f"{name} serving launches {launches}, expected "
+                           f"{expected[0]} + {expected[1]}")
+    if tuple(out.shape) != (frames.shape[0], *FRAME_HW, 1):
+        raise RuntimeError(f"{name} output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"non-finite depth in {name}'s bf16 serving "
+                           "output")
+    return out, launches
+
+
 def phase_serve(model) -> tuple:
     fx = np.load(FIXTURE)
     frames4 = fixture_frames()
@@ -422,18 +494,7 @@ def phase_serve(model) -> tuple:
         0, 256, (BATCH - 4, *FRAME_HW, 3), dtype=np.uint8)
     frames = torch.from_numpy(np.concatenate([frames4, rest])).to(DEVICE)
     serve = make_serving_fn(model, device=DEVICE)
-    depthwise_bn_swish.launches = 0
-    upsample_conv.launches = 0
-    out = serve(frames)
-    torch.cuda.synchronize()
-    launches = {"depthwise_bn_swish": depthwise_bn_swish.launches,
-                "upsample_conv": upsample_conv.launches}
-    if launches != {"depthwise_bn_swish": 16, "upsample_conv": 4}:
-        raise RuntimeError(f"main path launches {launches}, expected 16 + 4")
-    if tuple(out.shape) != (BATCH, *FRAME_HW, 1):
-        raise RuntimeError(f"output shape {tuple(out.shape)}")
-    if not bool(torch.isfinite(out).all()):
-        raise RuntimeError("non-finite depth in the bf16 serving output")
+    out, launches = serve_counted(serve, frames, "ENB0-HU", (16, 4))
     ref_up = resize_bilinear_align_corners(ref[..., None], FRAME_HW)
     err = (out[:4] - ref_up).abs()
     e_max, e_mean = err.max().item(), err.mean().item()
@@ -456,8 +517,11 @@ def composition(x: torch.Tensor, k: torch.Tensor, size) -> torch.Tensor:
     return F.conv2d(up, w, padding=2)
 
 
-def phase_time(model, serve, frames, card, dw_sites, up_sites,
-               einsum_sites) -> dict:
+def serving_rate(serve, frames, card, phase: str, label: str) -> dict:
+    """frames/s and ms per batch on the host clock over ITERS calls after
+    WARMUP, the peak device memory of those calls, and the card's kernel
+    busy time in one call with the idle share of the batch time it
+    leaves."""
     for _ in range(WARMUP):
         serve(frames)
     torch.cuda.synchronize()
@@ -467,42 +531,74 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites,
         serve(frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    log("5 time", f"{card}: serving {BATCH}x{FRAME_HW} bf16: "
-                  f"{BATCH * ITERS / dt:.1f} frames/s ({1e3 * dt / ITERS:.2f}"
-                  f" ms per batch, host clock), peak memory "
-                  f"{peak / 2**30:.2f} GiB")
+    rate = dict(frames_per_s=BATCH * ITERS / dt, ms_per_batch=1e3 * dt / ITERS,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with torch.inference_mode():
+        busy, records, top = kernel_busy(lambda: serve(frames))
+    rate.update(busy_ms=busy, idle_share=1 - busy / rate["ms_per_batch"])
+    log(phase, f"{card}: {label} serving {BATCH}x{FRAME_HW} bf16: "
+        f"{rate['frames_per_s']:.1f} frames/s ({rate['ms_per_batch']:.2f} ms "
+        f"per batch, host clock), peak memory {rate['peak_gib']:.2f} GiB; "
+        f"kernels busy {busy:.2f} ms per batch (torch.profiler, "
+        f"{records:.0f} kernel and copy records a call): device idle share "
+        f"{rate['idle_share']:.3f}; most device ms per batch: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in top[:5]))
+    return rate
 
+
+def stage_times(model, frames, card, phase: str, label: str) -> dict:
+    """Each stage of the bf16 serving forward as a call of its own on its
+    own inputs: CUDA events over 5 eager calls (``ms``; host time included
+    where the host launches the stage slower than the card runs it) and the
+    kernel busy time per call (``busy_ms``, the device time alone)."""
     mb = copy.deepcopy(model).to(torch.bfloat16)
     with torch.inference_mode():
         x = eval_preprocess_image_only(frames).to(torch.bfloat16)
-        taps = mb.E(x)
-        x_d = mb.D(taps)
-        size = tuple(x_d.shape[1:3])
-        x_mff = mb.MFF(taps, size)
-        x_r = torch.cat([x_d, x_mff], dim=-1)
-        out = mb.R(x_r).float()
-        stages = {
-            "preprocess": lambda: eval_preprocess_image_only(frames),
-            "E": lambda: mb.E(x), "D": lambda: mb.D(taps),
-            "MFF": lambda: mb.MFF(taps, size), "R": lambda: mb.R(x_r),
-            "upsample": lambda: resize_bilinear_align_corners(out, FRAME_HW),
-        }
-        parts = {k: cuda_ms(fn, 5) for k, fn in stages.items()}
-    log("5 time", f"{card}: stage device ms at batch {BATCH}: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+        if isinstance(mb, HuDepthModel):
+            taps = mb.E(x)
+            x_d = mb.D(taps)
+            size = tuple(x_d.shape[1:3])
+            x_r = torch.cat([x_d, mb.MFF(taps, size)], dim=-1)
+            out = mb.R(x_r).float()
+            fns = {"E": lambda: mb.E(x), "D": lambda: mb.D(taps),
+                   "MFF": lambda: mb.MFF(taps, size),
+                   "R": lambda: mb.R(x_r)}
+        else:
+            taps = mb.encoder(x)
+            feats = mb.decoder.decode(taps)
+            out = mb.decoder.head(feats, mb.output_size).float()
+            fns = {"encoder": lambda: mb.encoder(x),
+                   "decoder blocks": lambda: mb.decoder.decode(taps),
+                   "head": lambda: mb.decoder.head(feats, mb.output_size)}
+        fns = {"preprocess": lambda: eval_preprocess_image_only(frames),
+               **fns,
+               "upsample": lambda: resize_bilinear_align_corners(
+                   out, FRAME_HW)}
+        parts = {k: dict(ms=cuda_ms(fn, 5), busy_ms=kernel_busy(fn)[0])
+                 for k, fn in fns.items()}
+    log(phase, f"{card}: {label} stages at batch {BATCH}, device ms by "
+        "CUDA events over eager calls [kernel busy ms, torch.profiler]: "
+        + ", ".join(f"{k} {v['ms']:.2f} [{v['busy_ms']:.2f}]"
+                    for k, v in parts.items())
+        + f"; sums {sum(v['ms'] for v in parts.values()):.2f} "
+        f"[{sum(v['busy_ms'] for v in parts.values()):.2f}]")
+    return parts
 
+
+def time_sites(model, card, dw_sites, up_sites, phase: str,
+               label: str) -> dict:
+    """Each kernel at each site of a model, bf16 at BATCH: its ms (CUDA
+    events over a loop of eager wrapper calls, as the first versions of
+    these kernels were timed: what a serving forward pays, host included
+    where the host is slower than the kernel), its CUDA-graph replay (the
+    device time alone), its plain version, bound and yardstick; summed per
+    forward."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     res = {"depthwise": dict(ms=0.0, graph_ms=0.0, plain_ms=0.0, bytes=0.0,
                              ops=0.0, grouped_ms=0.0),
            "upsample_conv": dict(ms=0.0, graph_ms=0.0, plain_ms=0.0,
                                  bytes=0.0, ops=0.0, composition_ms=0.0)}
     with torch.inference_mode():
-        # ms: CUDA events over a loop of eager wrapper calls, as the first
-        # versions of these kernels were timed (what a serving forward
-        # pays, host included where the host is slower than the kernel);
-        # graph: the same calls replayed from a CUDA graph, the device time
-        # alone.
         for s in dw_sites:
             args = dw_inputs(s, torch.bfloat16, gen)
             kw = dict(stride=s["stride"], padding=s["pad"])
@@ -523,7 +619,7 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites,
             r["ops"] += to
             r["grouped_ms"] += grouped
             gbs = tb * HBM_BYTES_PER_S / 1e9 / ms
-            log("5 time", f"{card}: depthwise {s['name']} ({BATCH},"
+            log(phase, f"{card}: {label} depthwise {s['name']} ({BATCH},"
                 f"{s['hw'][0]},{s['hw'][1]},{s['c']}) k{s['k']} "
                 f"s{s['stride']}: kernel {ms:.4f} ms ({gbs:.0f} GB/s; "
                 f"CUDA graph {graph:.4f} ms), plain "
@@ -545,7 +641,7 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites,
             r["bytes"] += tb
             r["ops"] += to
             r["composition_ms"] += comp
-            log("5 time", f"{card}: upsample_conv {s['name']} ({BATCH},"
+            log(phase, f"{card}: {label} upsample_conv {s['name']} ({BATCH},"
                 f"{s['hw'][0]},{s['hw'][1]},{s['c']}) -> {s['size']}x"
                 f"{s['o']}: kernel {ms:.4f} ms "
                 f"({to * BF16_OPS_PER_S / ms / 1e12:.1f} TFLOP/s; CUDA "
@@ -555,6 +651,25 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites,
                 f"bound {max(tb, to):.4f} ms ("
                 f"{'bytes' if tb >= to else 'operations'}; share of bound "
                 f"reached {max(tb, to) / ms:.3f})")
+    for name, r in res.items():
+        if not r["ms"]:
+            continue
+        bound = max(r["bytes"], r["ops"])
+        log(phase, f"{card}: {label} {name} per forward: kernel "
+            f"{r['ms']:.3f} ms (CUDA events over eager calls; CUDA-graph "
+            f"replay {r['graph_ms']:.3f}), plain {r['plain_ms']:.3f} ms, "
+            f"bound {bound:.3f} ms, share of bound reached "
+            f"{bound / r['ms']:.3f}")
+    return res
+
+
+def phase_time(model, serve, frames, card, dw_sites, up_sites,
+               einsum_sites) -> tuple[dict, dict]:
+    rate = serving_rate(serve, frames, card, "5 time", "ENB0-HU")
+    rate["stage_ms"] = stage_times(model, frames, card, "5 time", "ENB0-HU")
+    res = time_sites(model, card, dw_sites, up_sites, "5 time", "ENB0-HU")
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    with torch.inference_mode():
         # ROADMAP A15: the kernel where should_fuse picks the einsum form.
         for s in einsum_sites:
             x, k = up_inputs(s, model, torch.bfloat16, gen)
@@ -570,18 +685,93 @@ def phase_time(model, serve, frames, card, dw_sites, up_sites,
                 f"({to * BF16_OPS_PER_S / ms / 1e12:.1f} TFLOP/s), einsum "
                 f"form (the model's route) {einsum:.4f} ms (both CUDA-graph "
                 "replay)")
-    for name, r in res.items():
-        bound = max(r["bytes"], r["ops"])
-        log("5 time", f"{card}: {name} per forward: kernel {r['ms']:.3f} ms "
-            f"(CUDA events over eager calls; CUDA-graph replay "
-            f"{r['graph_ms']:.3f}), plain {r['plain_ms']:.3f} ms, bound "
-            f"{bound:.3f} ms, share of bound reached {bound / r['ms']:.3f}")
     log("5 time", f"{card}: cuDNN grouped conv alone over the depthwise "
         f"sites (partial yardstick): {res['depthwise']['grouped_ms']:.3f} ms")
     log("5 time", f"{card}: F.interpolate + cuDNN conv2d over the "
         f"upsample_conv sites (yardstick): composition_ms "
         f"{res['upsample_conv']['composition_ms']:.3f}")
-    return res
+    return res, rate
+
+
+def phase_lr(frames, card) -> dict:
+    """7: ENB0-LR, a MidasNet, from its .ede against its JAX fixture."""
+    fx = np.load(LR_FIXTURE)
+    if int(frames[:4].sum()) != int(fx["frames_sum"]):
+        raise RuntimeError("ENB0-LR fixture frames differ from the recipe")
+    ref = torch.from_numpy(fx["depth"]).to(DEVICE)
+    model = load_any_checkpoint(LR_CHECKPOINT, device=DEVICE)
+    out32 = make_infer_fn(model, preprocess=True, device=DEVICE)(
+        frames[:4])[..., 0]
+    torch.testing.assert_close(out32, ref, **F32_MODEL_TOL)
+    log("7 ENB0-LR", f"f32 forward vs JAX fixture: max abs "
+        f"{max_abs(out32, ref):.3g} m (rtol/atol {F32_MODEL_TOL['rtol']}/"
+        f"{F32_MODEL_TOL['atol']})")
+
+    serve = make_serving_fn(model, device=DEVICE)
+    out, launches = serve_counted(serve, frames, "ENB0-LR", (16, 0))
+    ref_up = resize_bilinear_align_corners(ref[..., None], FRAME_HW)
+    err = (out[:4] - ref_up).abs()
+    e_max, e_mean = err.max().item(), err.mean().item()
+    if e_max > BF16_LR_MAX_ABS or e_mean > BF16_LR_MEAN_ABS:
+        raise RuntimeError(f"ENB0-LR bf16 serving vs fixture: max {e_max} "
+                           f"mean {e_mean} m")
+    log("7 ENB0-LR", f"bf16 serving of {BATCH} frames {FRAME_HW}: shape "
+        f"{tuple(out.shape)} finite, launches {launches}, vs fixture max abs "
+        f"{e_max:.3g} m (<= {BF16_LR_MAX_ABS}) mean abs {e_mean:.3g} m "
+        f"(<= {BF16_LR_MEAN_ABS})")
+    del out
+
+    rate = serving_rate(serve, frames, card, "7 ENB0-LR", "ENB0-LR")
+    rate["stage_ms"] = stage_times(model, frames, card, "7 ENB0-LR",
+                                   "ENB0-LR")
+    return dict(name="ENB0-LR", launches=launches, bf16_max_abs_m=e_max,
+                bf16_mean_abs_m=e_mean, **rate)
+
+
+def random_model(name: str) -> torch.nn.Module:
+    """A released configuration at full width and depth with the seeded
+    random weights of ``randomize_``, on the card."""
+    encoder, decoder, seed, _ = RANDOM_CONFIGS[name]
+    return randomize_(build_model(encoder, decoder), seed).to(DEVICE)
+
+
+def phase_random(name: str, frames, card) -> dict:
+    """8: one configuration with random weights: bf16 serving with its
+    exact launches, against its own f32 forward; frames/s, peak memory and,
+    where it gives the kernels shapes of their own, their times."""
+    expected = RANDOM_CONFIGS[name][3]
+    model = random_model(name)
+    serve = make_serving_fn(model, device=DEVICE)
+    out, launches = serve_counted(serve, frames, name, expected)
+    n = F32_CHECK_FRAMES
+    ref = make_infer_fn(model, preprocess=True, upsample_to=FRAME_HW,
+                        device=DEVICE)(frames[:n])
+    scale = ref.abs().max().item()
+    err = (out[:n] - ref).abs()
+    rel_max, rel_mean = err.max().item() / scale, err.mean().item() / scale
+    if not (scale > 0 and rel_max <= BF16_RANDOM_MAX_REL
+            and rel_mean <= BF16_RANDOM_MEAN_REL):
+        raise RuntimeError(f"{name} bf16 vs f32: max {rel_max} mean "
+                           f"{rel_mean} of max|f32| {scale}")
+    log("8 configs", f"{name} bf16 serving of {BATCH} frames {FRAME_HW}: "
+        f"shape {tuple(out.shape)} finite, launches {launches}; vs its f32 "
+        f"forward on {n} frames, of max|f32| {scale:.4g}: max "
+        f"{rel_max:.3g} (<= {BF16_RANDOM_MAX_REL}), mean {rel_mean:.3g} "
+        f"(<= {BF16_RANDOM_MEAN_REL})")
+    del out, ref, err
+    rate = serving_rate(serve, frames, card, "8 configs", name)
+    rate["stage_ms"] = stage_times(model, frames, card, "8 configs", name)
+    result = dict(name=name, launches=launches, bf16_max_rel=rel_max,
+                  bf16_mean_rel=rel_mean, **rate)
+    if name in NEW_SHAPE_CONFIGS:
+        dw_sites, up_sites, _ = main_path_sites(model)
+        res = time_sites(model, card, dw_sites, up_sites, "8 configs", name)
+        result["kernels"] = {
+            k: dict(ms=r["ms"], graph_ms=r["graph_ms"],
+                    plain_ms=r["plain_ms"],
+                    bound_ms=max(r["bytes"], r["ops"]))
+            for k, r in res.items() if r["ms"]}
+    return result
 
 
 def train_batch(seeds) -> dict:
@@ -774,20 +964,39 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
-def profile_steps(step, state, batch, steps: int = 2) -> tuple:
-    """Kernel time per step (the union of the kernels' intervals in a
-    ``torch.profiler`` trace of ``steps`` steps), device records per step,
-    and the operators with the most device time per step."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(state, batch, 0)
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        raise RuntimeError("the profiler saw no kernel on the card")
+PROFILER_TRIES = 5
+
+
+def kernel_busy(fn, calls: int = 2) -> tuple:
+    """Device busy ms per ``fn()`` call (the union of the kernels' intervals
+    in a ``torch.profiler`` trace of ``calls`` calls, after one unprofiled
+    call), device records per call, and the operators with the most device
+    time per call.
+
+    Every ``fn`` here launches kernels, so a trace without device records
+    is the tracer's loss, not the program's: CUPTI now and then returns an
+    empty activity buffer for one session among the dozens a run opens.
+    Such a trace is taken again, a second later, up to PROFILER_TRIES
+    times in all; if none holds a device record, this raises."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILER_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+        log("profiler", f"trace {attempt} of {PROFILER_TRIES} holds no "
+            "device record; tracing again")
+        time.sleep(1.0)
+    else:
+        raise RuntimeError(f"the profiler saw no kernel on the card in "
+                           f"{PROFILER_TRIES} traces")
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -796,11 +1005,11 @@ def profile_steps(step, state, batch, steps: int = 2) -> tuple:
         else:
             hi = max(hi, end)
     busy += hi - lo
-    ops = sorted(((e.key, _self_device_us(e) / steps / 1e3)
+    ops = sorted(((e.key, _self_device_us(e) / calls / 1e3)
                   for e in prof.key_averages()
                   if e.key.startswith("aten::") and _self_device_us(e) > 0),
                  key=lambda kv: -kv[1])
-    return busy / steps / 1e3, len(spans) / steps, ops[:8]
+    return busy / calls / 1e3, len(spans) / calls, ops[:8]
 
 
 def loss_bound(ops_per_px: int, bytes_per_px: int) -> tuple[float, float]:
@@ -832,7 +1041,7 @@ def phase_train_time(card, state, step, batch) -> dict:
     log("6 train", f"{card}: step phases, device ms between CUDA events: "
         + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
         + f"; sum {sum(parts.values()):.2f}")
-    busy_ms, records, top_ops = profile_steps(step, state, batch)
+    busy_ms, records, top_ops = kernel_busy(lambda: step(state, batch, 0))
     log("6 train", f"{card}: kernels busy {busy_ms:.2f} ms per step "
         f"(torch.profiler, {records:.0f} kernel and copy records a step); "
         f"against the {1e3 * dt / ITERS:.2f} ms step "
@@ -887,16 +1096,32 @@ def main() -> int:
         raise RuntimeError(f"found {len(dw_sites)} depthwise and "
                            f"{len(up_sites)} direct upsample-conv sites")
     errs = phase_kernels(model, dw_sites, up_sites)
+    for name in NEW_SHAPE_CONFIGS:
+        other = random_model(name)
+        sites = main_path_sites(other)
+        counts = (len(sites[0]), len(sites[1]))
+        if counts != RANDOM_CONFIGS[name][3]:
+            raise RuntimeError(f"found {counts} kernel sites in {name}")
+        for key, e in phase_kernels(other, *sites[:2], name).items():
+            errs[key] = max(errs[key], e)
+        del other, sites
     errs.update(phase_loss_kernels())
     serve, frames, launches = phase_serve(model)
-    res = phase_time(model, serve, frames, card, dw_sites, up_sites,
-                     einsum_sites)
-    del serve, frames
+    res, rate = phase_time(model, serve, frames, card, dw_sites, up_sites,
+                           einsum_sites)
+    configs = [dict(name="ENB0-HU", launches=dict(launches), **rate)]
+    del serve, model
     phase_train_fixture()
     state, step, batch, train_launches = phase_train_steps()
     res.update(phase_train_time(card, state, step, batch))
     launches.update({k: train_launches[k] for k in ("fused_depth_loss",
                                                     "fused_depth_loss_bwd")})
+    del state, step, batch
+    configs.append(phase_lr(frames, card))
+    for name in RANDOM_CONFIGS:
+        configs.append(phase_random(name, frames, card))
+    for c in configs:
+        c["card"] = card
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -924,6 +1149,7 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"configs": configs}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,3 +10,8 @@ Entry points (``apps.common.load_any_checkpoint``, ``make_serving_fn``) run on
 the CUDA card unless the caller passes ``device="cpu"``. On CPU tensors the
 hand-written kernels (``ops.kernels``) run their plain PyTorch versions.
 """
+
+# Version of the self-describing MidasNet checkpoint schema, the reference's
+# lasinger2019.__version__ (ReSIDE/models/lasinger2019.py:11), as the JAX
+# package writes it into its .ede headers.
+MIDAS_CHECKPOINT_VERSION = "0.2.0"

@@ -40,7 +40,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def load_any_checkpoint(path: str, *, device=None) -> nn.Module:
-    """The model of a native ``.ede`` checkpoint, on ``device``, eval."""
+    """The model of a native ``.ede`` checkpoint, a Hu2018 state or a
+    self-describing MidasNet, on ``device``, eval."""
     device = resolve_device(device)
     with open(path, "rb") as f:
         magic = f.read(4)
@@ -60,7 +61,7 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     or with ``preprocess=True`` raw uint8 frames, which go through
     ``eval_preprocess_image_only`` first. It returns f32 NHWC depth,
     upsampled to ``upsample_to`` (H, W) when given. As in the JAX package,
-    ``dtype`` casts every floating-point weight and statistic.
+    ``dtype`` casts every floating-point weight, bias and statistic.
     """
     device = resolve_device(device)
     model = copy.deepcopy(model).to(device).eval()

@@ -15,7 +15,7 @@ from torch import nn
 from efficientdepthestimation_tpu_torch.ops.conv import conv2d
 from efficientdepthestimation_tpu_torch.ops.norm import batch_norm, fold_bn
 
-__all__ = ["Conv", "BatchNorm"]
+__all__ = ["Conv", "BatchNorm", "randomize_"]
 
 
 class Conv(nn.Module):
@@ -82,3 +82,38 @@ class BatchNorm(nn.Module):
             self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
         inv = torch.rsqrt(var + self.eps) * self.weight
         return (xf * inv + (self.bias - mean * inv)).to(x.dtype)
+
+
+def randomize_(model: nn.Module, seed: int) -> nn.Module:
+    """Redraw every weight and BatchNorm statistic of a model on the CPU, in
+    place, from ``torch.Generator().manual_seed(seed)`` in module order: a
+    model without a checkpoint, the same on every machine.
+
+    Conv weights are LeCun-uniform, U(±√(3 / fan_in)), which keeps the
+    outputs of the released configurations O(0.1-10) at 228×304 (He's
+    √(6 / fan_in) grows them by orders of magnitude, and the EfficientNet
+    models' bf16 forwards then part from their f32 ones); conv biases
+    U(±1/√fan_in); BatchNorm weights 1 ± 0.2, biases and running means
+    ± 0.2 and running variances 0.5-1.5, so that every eval fold is
+    non-trivial.
+    """
+    gen = torch.Generator().manual_seed(seed)
+
+    def uniform_(t: torch.Tensor, lo: float, hi: float) -> None:
+        t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv):
+                fan_in = m.weight[0].numel()
+                bound = math.sqrt(3.0 / fan_in)
+                uniform_(m.weight, -bound, bound)
+                if m.bias is not None:
+                    bound = 1.0 / math.sqrt(fan_in)
+                    uniform_(m.bias, -bound, bound)
+            elif isinstance(m, BatchNorm):
+                uniform_(m.weight, 0.8, 1.2)
+                uniform_(m.bias, -0.2, 0.2)
+                uniform_(m.running_mean, -0.2, 0.2)
+                uniform_(m.running_var, 0.5, 1.5)
+    return model

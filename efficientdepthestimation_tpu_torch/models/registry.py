@@ -1,44 +1,120 @@
-"""Model factory and ``{ENC}-{DEC}`` checkpoint-name parsing.
+"""Model factory: the encoder × decoder registry and ``{ENC}-{DEC}``
+checkpoint-name parsing.
 
-Counterpart of ``efficientdepthestimation_tpu/models/registry.py``. This
-slice of the port builds the EfficientNet-B0/B4 encoders with the Hu2018
-decoder; the other encoders and the MiDaS decoder are ROADMAP item A7.
+Counterpart of ``efficientdepthestimation_tpu/models/registry.py`` (the
+reference's ``define_model``, ReSIDE/train.py:20-38, and the MiDaS assembly,
+train.py:86-91). The port builds the ResNet and EfficientNet encoders under
+either decoder; the DenseNet and SENet encoders are ROADMAP item A7.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+from dataclasses import dataclass
+from typing import Callable
 
 from torch import nn
 
 from efficientdepthestimation_tpu_torch.models.efficientnet import (
+    EFFICIENTNET_PARAMS,
     EfficientNetFeatures,
     efficientnet_block_channels,
 )
 from efficientdepthestimation_tpu_torch.models.hu2018 import HuDepthModel
+from efficientdepthestimation_tpu_torch.models.midas import MidasNet
+from efficientdepthestimation_tpu_torch.models.resnet import (
+    RESNET_LAYERS,
+    ResNetFeatures,
+    resnet_block_channels,
+)
 
-__all__ = ["build_model", "parse_checkpoint_name"]
+__all__ = ["ENCODER_SPECS", "EncoderSpec", "build_model", "define_model",
+           "encoder_spec", "model_from_checkpoint_name",
+           "parse_checkpoint_name"]
 
-_PORTED_ENCODERS = ("efficientnet-b0", "efficientnet-b4")
+
+@dataclass(frozen=True)
+class EncoderSpec:
+    name: str
+    factory: Callable[[], nn.Module]
+    block_channels: tuple[int, ...]
+
+    @property
+    def num_features(self) -> int:
+        return self.block_channels[-1]
 
 
-def build_model(encoder_name: str, decoder_name: str = "hu2018") -> nn.Module:
-    """An encoder×decoder depth model in eval mode, with random weights."""
-    encoder = encoder_name.lower()
+def _specs() -> dict[str, EncoderSpec]:
+    specs = {}
+    for name in RESNET_LAYERS:
+        specs[name] = EncoderSpec(
+            name, functools.partial(ResNetFeatures, variant=name),
+            tuple(resnet_block_channels(name)))
+    for name in EFFICIENTNET_PARAMS:
+        specs[name] = EncoderSpec(
+            name, functools.partial(EfficientNetFeatures, variant=name),
+            tuple(efficientnet_block_channels(name)))
+    return specs
+
+
+ENCODER_SPECS = _specs()
+
+# Encoders of the JAX package that the port does not build yet (the
+# DenseNet-161 and SENet-154 of DN161-HU/SN154-HU and the Cadene zoo).
+_UNPORTED_ENCODERS = ("densenet", "densenet161", "senet", "senet154",
+                      "se_resnet50", "se_resnet101", "se_resnet152",
+                      "se_resnext50_32x4d", "se_resnext101_32x4d")
+
+
+def encoder_spec(name: str) -> EncoderSpec:
+    key = name.lower()
+    if key in ENCODER_SPECS:
+        return ENCODER_SPECS[key]
+    if key in _UNPORTED_ENCODERS:
+        raise NotImplementedError(
+            f"encoder '{name}' is not ported yet (ROADMAP A7); ported: "
+            f"{', '.join(ENCODER_SPECS)}")
+    raise ValueError(f"Unknown encoder '{name}'")
+
+
+def build_model(encoder_name: str, decoder_name: str = "hu2018", *,
+                output_size: tuple[int, int] = (114, 152),
+                input_size: tuple[int, int] | None = (228, 304),
+                num_features: int | str = "auto",
+                non_negative: bool = False) -> nn.Module:
+    """An encoder×decoder depth model in eval mode, with random weights.
+
+    ``decoder_name`` ∈ {"hu2018", "lasinger2019"}; sizes are HW and apply to
+    the MiDaS decoder only, as in the JAX package.
+    """
     decoder = decoder_name.lower()
-    if decoder in ("lasinger2019", "midas", "ranftl2019"):
-        raise NotImplementedError(
-            "the MiDaS (lasinger2019) decoder is not ported yet (ROADMAP A7)")
-    if decoder != "hu2018":
+    if decoder not in ("hu2018", "lasinger2019", "midas", "ranftl2019"):
         raise ValueError(f"Unknown decoder '{decoder_name}'")
-    if encoder not in _PORTED_ENCODERS:
-        raise NotImplementedError(
-            f"encoder '{encoder_name}' is not ported yet (ROADMAP A7); "
-            f"ported: {', '.join(_PORTED_ENCODERS)}")
-    block_channel = efficientnet_block_channels(encoder)
-    return HuDepthModel(EfficientNetFeatures(encoder),
-                        num_features=block_channel[-1],
-                        block_channel=block_channel).eval()
+    spec = encoder_spec(encoder_name)
+    if decoder == "hu2018":
+        model = HuDepthModel(spec.factory(), num_features=spec.num_features,
+                             block_channel=spec.block_channels)
+    else:
+        model = MidasNet(spec.factory(), spec.block_channels,
+                         output_size=output_size, input_size=input_size,
+                         num_features=num_features, non_negative=non_negative)
+    return model.eval()
+
+
+def define_model(is_resnet: bool = False, is_densenet: bool = False,
+                 is_senet: bool = False, is_efficientnet: bool = False,
+                 efficientnet_variant: str = "efficientnet-b0") -> nn.Module:
+    """Flag-for-flag port of the reference factory (ReSIDE/train.py:20-38)."""
+    if is_resnet:
+        return build_model("resnet50", "hu2018")
+    if is_densenet:
+        return build_model("densenet161", "hu2018")
+    if is_senet:
+        return build_model("senet154", "hu2018")
+    if is_efficientnet:
+        return build_model(efficientnet_variant, "hu2018")
+    raise ValueError("No encoder selected")
 
 
 # The released checkpoints follow '{ENC}-{DEC}.pth' with these tokens
@@ -57,9 +133,8 @@ _ENCODER_TOKENS = {
 }
 # Full encoder names the 3-part 'efficientnet-b0-hu2018.pth' form may use,
 # each with its canonical name (the JAX package's ENCODER_SPECS).
-_ENCODER_NAMES = {name: name for name in (
-    *_ENCODER_TOKENS.values(), "resnet34", "se_resnet50", "se_resnet101",
-    "se_resnet152", "se_resnext50_32x4d", "se_resnext101_32x4d")}
+_ENCODER_NAMES = {name: name for name in (*ENCODER_SPECS,
+                                          *_UNPORTED_ENCODERS)}
 _ENCODER_NAMES.update(densenet="densenet161", senet="senet154")
 
 
@@ -77,3 +152,8 @@ def parse_checkpoint_name(filename: str) -> tuple[str, str]:
     if encoder is None or decoder is None:
         raise ValueError(f"Cannot parse model from checkpoint name '{filename}'")
     return encoder, decoder
+
+
+def model_from_checkpoint_name(filename: str, **kwargs) -> nn.Module:
+    encoder, decoder = parse_checkpoint_name(filename)
+    return build_model(encoder, decoder, **kwargs)

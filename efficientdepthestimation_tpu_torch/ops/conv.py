@@ -13,7 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d", "same_padding_static", "norm_padding"]
+__all__ = ["conv2d", "same_padding_static", "norm_padding", "max_pool",
+           "avg_pool_global"]
 
 
 def norm_padding(padding) -> tuple[tuple[int, int], tuple[int, int]]:
@@ -62,3 +63,20 @@ def same_padding_static(image_size: tuple[int, int],
         total = max((out - 1) * s + eff_k - size, 0)
         pads.append((total // 2, total - total // 2))
     return (pads[0], pads[1])
+
+
+def max_pool(x: torch.Tensor, window: int | tuple[int, int],
+             stride: int | tuple[int, int], padding: int | tuple[int, int] = 0,
+             ceil_mode: bool = False) -> torch.Tensor:
+    """Max pooling of NHWC ``x`` with PyTorch semantics: the padding is
+    -inf, and ``ceil_mode`` keeps a last partial window that starts inside
+    the input or its left padding (SENet's stem pools), as the JAX
+    package's ``max_pool`` reproduces (``ops/conv.py:203-212`` there)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding,
+                     ceil_mode=ceil_mode)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def avg_pool_global(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    """Mean over H and W of NHWC ``x`` (``nn.AdaptiveAvgPool2d(1)``)."""
+    return x.mean(dim=(1, 2), keepdim=keepdims)

@@ -19,6 +19,8 @@ from efficientdepthestimation_tpu_torch.apps.common import (
 from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
     synthetic_train_set,
 )
+from efficientdepthestimation_tpu_torch.models.common import randomize_
+from efficientdepthestimation_tpu_torch.models.registry import build_model
 from efficientdepthestimation_tpu_torch.ops.kernels import depthwise
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
@@ -42,7 +44,13 @@ from efficientdepthestimation_tpu_torch.training.train_step import (
     make_train_step,
 )
 
-from make_torch_port_fixture import CHECKPOINT, FIXTURE_PATH, fixture_frames
+from make_torch_port_fixture import (
+    CHECKPOINT,
+    FIXTURE_PATH,
+    LR_CHECKPOINT,
+    LR_FIXTURE_PATH,
+    fixture_frames,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -114,14 +122,16 @@ DW_SITES = [
     ((9, 11), 12, 3, 2, _S2K3), ((3, 5), 76, 3, 1, _S1K3),
 ]
 # The upsample-conv sites (input hw, output hw, C, O): the direct sites of
-# ENB0-HU and ENB4-HU, their einsum sites (D.up1, MFF.up2-4, timed in
-# chip_smoke.py), then ragged ones: C = 13, O = 7 and 36, odd sizes, a size
-# that is not 2x, a 1x1 input.
+# ENB0-HU, ENB4-HU and RN50-HU (D.up4: K is 800 KiB, so it streams through
+# the ring), their einsum sites (D.up1, MFF.up2-4, timed in chip_smoke.py),
+# then ragged ones: C = 13, O = 7 and 36, odd sizes, a size that is not 2x,
+# a 1x1 input.
 UP_SITES = [
     ((14, 19), (28, 38), 80, 80), ((28, 38), (57, 76), 40, 40),
     ((57, 76), (114, 152), 20, 20), ((57, 76), (114, 152), 24, 32),
     ((14, 19), (28, 38), 112, 112), ((28, 38), (57, 76), 56, 56),
     ((57, 76), (114, 152), 28, 28), ((57, 76), (114, 152), 32, 32),
+    ((57, 76), (114, 152), 128, 128),
     ((7, 9), (14, 19), 160, 160), ((28, 38), (114, 152), 40, 32),
     ((14, 19), (114, 152), 80, 32), ((7, 9), (114, 152), 320, 32),
     ((7, 9), (14, 19), 224, 224), ((7, 9), (114, 152), 448, 32),
@@ -342,6 +352,50 @@ def test_serving_on_card_matches_fixture():
             upsample_conv.launches - up) == (16, 4)
     err = np.abs(out.numpy() - fixture["depth"])
     assert err.max() <= 0.5 and err.mean() <= 0.05
+
+
+def test_lr_serving_on_card_matches_fixture():
+    """ENB0-LR, a MidasNet: its EfficientNet encoder runs the depthwise
+    kernel (16 launches a forward), its decoder no upsample-conv."""
+    _need_card()
+    fixture = np.load(LR_FIXTURE_PATH)
+    model = load_any_checkpoint(LR_CHECKPOINT)
+    frames = torch.from_numpy(fixture_frames()).cuda()
+    dw, up = depthwise_bn_swish.launches, upsample_conv.launches
+    out32 = make_infer_fn(model, preprocess=True)(frames)[..., 0].cpu()
+    assert (depthwise_bn_swish.launches - dw,
+            upsample_conv.launches - up) == (16, 0)
+    np.testing.assert_allclose(out32.numpy(), fixture["depth"], rtol=1e-3,
+                               atol=1e-3)
+    out = make_serving_fn(model, upsample_to=None)(frames)[..., 0].cpu()
+    err = np.abs(out.numpy() - fixture["depth"])
+    assert err.max() <= 0.1 and err.mean() <= 0.01  # as chip_smoke.py
+
+
+# The configurations this port serves beside ENB0-HU: ENB0-LR with its
+# trained weights, the others with chip_smoke.py's random ones. The f32
+# forward on the card (its kernels, cuDNN, TF32 off) against the same
+# model on the CPU (the plain versions), at batch 2. Sums in other orders
+# through 50-100 layers: rtol 1e-3 and atol 1e-4 of the largest |output|
+# (random weights set its scale).
+@pytest.mark.parametrize("encoder,decoder,seed", [
+    ("efficientnet-b0", "lasinger2019", None),
+    ("efficientnet-b4", "hu2018", 4), ("efficientnet-b4", "lasinger2019", 5),
+    ("resnet50", "hu2018", 6), ("resnet50", "lasinger2019", 7)])
+def test_config_on_card_matches_cpu(encoder, decoder, seed):
+    _need_card()
+    if seed is None:
+        model = load_any_checkpoint(LR_CHECKPOINT, device="cpu")
+    else:
+        model = randomize_(build_model(encoder, decoder), seed)
+    x = torch.randn(2, 228, 304, 3, generator=torch.Generator().manual_seed(
+        seed or 0))
+    with torch.inference_mode():
+        ref = model(x)
+        out = model.cuda()(x.cuda()).cpu()
+    assert out.shape == ref.shape == (2, 114, 152, 1)
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4 * scale)
 
 
 def _loss_args(dtype, shape=(5, 37, 70), seed=0):

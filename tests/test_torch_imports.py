@@ -19,6 +19,7 @@ from efficientdepthestimation_tpu_torch.models import registry
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-HU-synthetic.ede")
+LR_CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-LR-synthetic.ede")
 
 
 def _port_modules() -> list[str]:
@@ -56,6 +57,11 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
         common.make_serving_fn(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         common.make_infer_fn(model, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.load_any_checkpoint(LR_CHECKPOINT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.make_serving_fn(registry.build_model("resnet18",
+                                                    "lasinger2019"))
     assert common.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -67,8 +73,8 @@ def test_pth_checkpoints_are_not_ported_yet(tmp_path):
 
 
 @pytest.mark.parametrize("encoder,decoder", [
-    ("resnet50", "hu2018"), ("densenet161", "hu2018"),
-    ("efficientnet-b0", "lasinger2019")])
+    ("senet154", "hu2018"), ("densenet161", "hu2018"),
+    ("densenet161", "lasinger2019")])
 def test_unported_models_name_the_roadmap_item(encoder, decoder):
     with pytest.raises(NotImplementedError, match="A7"):
         registry.build_model(encoder, decoder)
