@@ -9,7 +9,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases, one output line each (more for the per-site detail):
 
   1. build the three hand-written kernel sources with nvcc and print their
-     registers, shared memory and spills (``-Xptxas -v``);
+     registers, shared memory and spills (``-Xptxas -v``), and the loss
+     kernels' f32 and MUFU operations a pixel counted in their SASS, which
+     must be the counts ``LOSS_*_PER_PX`` hold;
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at every shape the
      ENB0-HU serving path gives it, and at the shapes only ENB4-HU (32
@@ -34,8 +36,10 @@ Phases, one output line each (more for the per-site detail):
      batch 64 through ``make_train_step`` (launches of one step: 1 loss
      forward, 1 loss backward, 4 upsample-conv, 0 depthwise; a finite loss
      that falls over 10 steps on a fixed batch; weights and BN statistics
-     move); then images/s, the device ms of the step's phases, each loss
-     kernel beside its bound and plain version, and peak device memory;
+     move); then images/s, the device ms of the step's phases, the launch
+     floor (an empty kernel by CUDA-graph replay) and each loss kernel
+     beside its bytes bound, its MUFU floor, that floor and its plain
+     version, and peak device memory;
   7. ENB0-LR from ``e2e/ENB0-LR-synthetic.ede`` (a MidasNet): the f32
      forward against its JAX fixture, bf16 serving of phase 4's 128 frames
      (shape, finiteness, 16 depthwise + 0 upsample-conv launches,
@@ -59,6 +63,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -190,12 +195,14 @@ BF16_LR_MAX_ABS, BF16_LR_MEAN_ABS = 0.1, 0.01
 BF16_RANDOM_MAX_REL, BF16_RANDOM_MEAN_REL = 0.15, 0.03
 # Loss kernel pair vs its plain versions, same inputs on the card.
 #   sums: per-image sums of 17,328 O(1) terms, added in another order
-#         (tiles, warps) than the plain reduction, and the normal term's
-#         norm as sqrt(a·b) (the Pallas kernel's form) against the plain
-#         sqrt(a)·sqrt(b): rtol 1e-5, atol 1e-2; the masked mean then
-#         agrees to 1e-5.
-#   dp f32: the same formula with other FMA contractions; 1e-4 relative
-#         and 1e-5 of the largest |dp| absolute (terms cancel).
+#         (threads, warps, a cluster's blocks) than the plain reduction,
+#         the logs and the normal term's 1/sqrt(a·b) (the Pallas kernel's
+#         form) by the approximate MUFU functions (absolute error below
+#         2^-22 a term) against the plain log and sqrt(a)·sqrt(b): rtol
+#         1e-5, atol 1e-2; the masked mean then agrees to 1e-5.
+#   dp f32: the same formula with other FMA contractions and the MUFU
+#         reciprocals (1-2 ulp); 1e-4 relative and 1e-5 of the largest
+#         |dp| absolute (terms cancel).
 #   dp bf16: one bf16 rounding of that: 1e-2 relative and of the largest.
 LOSS_TOL = {"sums": (1e-5, 1e-2), "loss": (1e-5, 1e-6),
             ("dp", torch.float32): 1e-4, ("dp", torch.bfloat16): 1e-2}
@@ -206,11 +213,16 @@ LOSS_TOL = {"sums": (1e-5, 1e-2), "loss": (1e-5, 1e-6),
 # update is ±lr per element, so at most 1 element in 100 whose gradient is
 # within float noise of 0 may step the other way (2·lr apart).
 STEP_TOL = dict(metrics=1e-4, grad=1e-2, stats=1e-4, flips=0.01)
-# Operations a pixel, f32 on the CUDA cores (67 TFLOP/s): the forward's
-# two Sobel pairs and four terms (3 logs, a sqrt, a divide) ~60, the
-# backward's Sobel pairs, A/B factors (2 sqrts, 6 divides) and the two
-# correlations ~120. Each is below its bytes time, so bytes bound both.
-LOSS_FWD_OPS_PER_PX, LOSS_BWD_OPS_PER_PX = 60, 120
+# Operations a pixel of the loss pair, counted in the SASS of each
+# kernel's per-quad loop (``cuobjdump -sass`` of the built library; phase 1
+# counts them in this run's build and fails if they differ from these): f32
+# operations on the CUDA cores
+# (67 TFLOP/s; an FFMA counts 2) and MUFU operations (lg2, rsq, rcp) on the
+# special-function units, 16 a clock an SM (132 SMs at 1.98 GHz). The
+# backward's per-pixel counts include its A/B loop.
+LOSS_FWD_OPS_PER_PX, LOSS_BWD_OPS_PER_PX = 45, 66
+LOSS_FWD_MUFU_PER_PX, LOSS_BWD_MUFU_PER_PX = 4, 5
+MUFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 
 def fixture_frames() -> np.ndarray:
@@ -340,6 +352,65 @@ def phase_build() -> None:
                 log("1 build", f"{name}: {line.strip()}")
     log("1 build", f"ok: the three kernel sources built for sm_90a in "
                    f"{time.perf_counter() - t0:.1f} s")
+    counts = loss_sass_counts()
+    expected = {"fwd": (LOSS_FWD_OPS_PER_PX, LOSS_FWD_MUFU_PER_PX),
+                "bwd": (LOSS_BWD_OPS_PER_PX, LOSS_BWD_MUFU_PER_PX)}
+    for kind, c in counts.items():
+        log("1 build", f"fused_depth_loss {kind} SASS (bf16, 16-byte path; "
+            f"{c['loops']:.0f} innermost loop(s) with MUFU): {c['f32']:g} f32 "
+            f"operations and {c['mufu']:g} MUFU operations a pixel")
+        if (c["f32"], c["mufu"]) != expected[kind]:
+            raise RuntimeError(
+                f"fused_depth_loss {kind}: the SASS holds {c['f32']:g} f32 and "
+                f"{c['mufu']:g} MUFU operations a pixel, LOSS_*_PER_PX "
+                f"{expected[kind]}: recount and update them")
+
+
+def sass_loops(sass: str, kernel: str) -> dict[str, float]:
+    """Operations a pixel in the SASS of ``kernel``'s bf16 vector-path
+    instance: the instructions of each innermost loop that holds MUFU
+    operations (a pass of ``slide`` takes 3 rows of a 4-pixel quad), over
+    12. ``mufu`` counts MUFU instructions, ``f32`` FADD and FMUL as 1 and
+    FFMA as 2."""
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        if kernel in name and "__nv_bfloat16" in name and "Lb1E" in name:
+            break
+    else:
+        raise RuntimeError(f"no bf16 vector {kernel} in the SASS")
+    insts = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in (
+        re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                 r"(.*)", line) for line in body.splitlines()) if m]
+    ops = [op for _, op, _ in insts]
+    start = {addr: i for i, (addr, _, _) in enumerate(insts)}
+    loops = []  # (first, last) instruction of each backward branch's loop
+    for i, (addr, op, rest) in enumerate(insts):
+        m = re.match(r"\s*(0x[0-9a-f]+)", rest)
+        if op == "BRA" and m and int(m.group(1), 16) <= addr:
+            loops.append((start[int(m.group(1), 16)], i))
+    mufu_loops = [(a, b) for a, b in loops
+                  if any(op.startswith("MUFU") for op in ops[a:b + 1])]
+    inner = [(a, b) for a, b in mufu_loops
+             if not any((c, d) != (a, b) and a <= c and d <= b
+                        for c, d in mufu_loops)]
+    counts = {"mufu": 0.0, "f32": 0.0}
+    for a, b in inner:
+        for op in ops[a:b + 1]:
+            counts["mufu"] += op.startswith("MUFU")
+            counts["f32"] += (2 if op.startswith("FFMA") else
+                              op.startswith(("FADD", "FMUL")))
+    return {k: v / 12 for k, v in counts.items()} | {"loops": len(inner)}
+
+
+def loss_sass_counts() -> dict[str, dict[str, float]]:
+    """The loss kernels' operations a pixel, from ``cuobjdump -sass`` of
+    this run's build (the counts LOSS_*_PER_PX hold)."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build._target(
+        "fused_depth_loss"))], capture_output=True, text=True, check=True,
+        timeout=120).stdout
+    return {"fwd": sass_loops(sass, "loss_fwd_kernel"),
+            "bwd": sass_loops(sass, "loss_bwd_kernel")}
 
 
 def phase_card() -> str:
@@ -397,13 +468,25 @@ def phase_kernels(model, dw_sites, up_sites, label: str = "ENB0-HU") -> dict:
 
 def loss_inputs(dtype, gen) -> tuple[torch.Tensor, torch.Tensor]:
     """(pred, target) at the training shape: image 0 flat in both, image 1
-    with pred == target, the rest uniform in 1-9 m."""
+    with pred == target, the rest uniform in 1-9 m on a grid of 2^-8 m
+    (``loss_grid``)."""
     shape = (TRAIN_BATCH, *LOSS_HW)
-    target = torch.rand(shape, generator=gen, device=DEVICE) * 8 + 1
-    pred = torch.rand(shape, generator=gen, device=DEVICE) * 8 + 1
+    target = loss_grid(torch.rand(shape, generator=gen, device=DEVICE))
+    pred = loss_grid(torch.rand(shape, generator=gen, device=DEVICE))
     pred[0] = target[0] = 3.0
     pred[1] = target[1]
     return pred.to(dtype).contiguous(), target
+
+
+def loss_grid(u: torch.Tensor) -> torch.Tensor:
+    """Uniform ``u`` in [0, 1) to 1-9 m on a grid of 2^-8 m. There every
+    Sobel sum is exact in f32, in any order of addition, so the kernels
+    and the plain versions see the same zero differences, where the
+    gradient of |e| jumps from -2 to 2 (on continuous data a difference
+    within rounding of 0 can fall on either side in the two). The values
+    keep up to 12 significant bits, which a kernel that staged f32 at
+    bf16's 8 would lose."""
+    return torch.round((u * 8 + 1) * 256) / 256
 
 
 def phase_loss_kernels() -> dict:
@@ -493,7 +576,9 @@ def phase_serve(model) -> tuple:
     rest = np.random.default_rng(1).integers(
         0, 256, (BATCH - 4, *FRAME_HW, 3), dtype=np.uint8)
     frames = torch.from_numpy(np.concatenate([frames4, rest])).to(DEVICE)
-    serve = make_serving_fn(model, device=DEVICE)
+    serve = make_serving_fn(model, upsample_to=FRAME_HW,
+                            dtype=torch.bfloat16, preprocess=True,
+                            device=DEVICE)
     out, launches = serve_counted(serve, frames, "ENB0-HU", (16, 4))
     ref_up = resize_bilinear_align_corners(ref[..., None], FRAME_HW)
     err = (out[:4] - ref_up).abs()
@@ -707,7 +792,9 @@ def phase_lr(frames, card) -> dict:
         f"{max_abs(out32, ref):.3g} m (rtol/atol {F32_MODEL_TOL['rtol']}/"
         f"{F32_MODEL_TOL['atol']})")
 
-    serve = make_serving_fn(model, device=DEVICE)
+    serve = make_serving_fn(model, upsample_to=FRAME_HW,
+                            dtype=torch.bfloat16, preprocess=True,
+                            device=DEVICE)
     out, launches = serve_counted(serve, frames, "ENB0-LR", (16, 0))
     ref_up = resize_bilinear_align_corners(ref[..., None], FRAME_HW)
     err = (out[:4] - ref_up).abs()
@@ -741,7 +828,9 @@ def phase_random(name: str, frames, card) -> dict:
     where it gives the kernels shapes of their own, their times."""
     expected = RANDOM_CONFIGS[name][3]
     model = random_model(name)
-    serve = make_serving_fn(model, device=DEVICE)
+    serve = make_serving_fn(model, upsample_to=FRAME_HW,
+                            dtype=torch.bfloat16, preprocess=True,
+                            device=DEVICE)
     out, launches = serve_counted(serve, frames, name, expected)
     n = F32_CHECK_FRAMES
     ref = make_infer_fn(model, preprocess=True, upsample_to=FRAME_HW,
@@ -941,8 +1030,9 @@ def _self_device_us(event) -> float:
 
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     """Device ms of one ``fn()`` call replayed from a CUDA graph of
-    ``iters`` calls: the call's kernels (and memsets) without the host's
-    launch cost, which a loop of eager calls would time instead."""
+    ``iters`` calls: every device operation the call launches, its
+    kernels and any fill or memset its wrapper adds beside them, without the
+    host's launch cost, which a loop of eager calls would time instead."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1012,13 +1102,18 @@ def kernel_busy(fn, calls: int = 2) -> tuple:
     return busy / calls / 1e3, len(spans) / calls, ops[:8]
 
 
-def loss_bound(ops_per_px: int, bytes_per_px: int) -> tuple[float, float]:
-    """(bytes time, operations time) in ms of one launch at the training
-    shape: bf16 pred and f32 target read once; the forward also writes
-    (N, 4) f32 sums, the backward a bf16 dp (in bytes_per_px)."""
+def loss_bound(ops_per_px: int, mufu_per_px: int, bytes_per_px: int
+               ) -> dict:
+    """Times in ms of one launch at the training shape: ``bytes``, bf16
+    pred and f32 target read once (the forward also writes (N, 4) f32
+    sums, the backward a bf16 dp, in bytes_per_px); ``ops``, its f32
+    operations at 67 TFLOP/s; ``mufu``, its MUFU operations at
+    MUFU_OPS_PER_S."""
     px = TRAIN_BATCH * LOSS_HW[0] * LOSS_HW[1]
     nbytes = px * bytes_per_px + TRAIN_BATCH * 4 * 4
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * px * ops_per_px / F32_OPS_PER_S
+    return {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "ops": 1e3 * px * ops_per_px / F32_OPS_PER_S,
+            "mufu": 1e3 * px * mufu_per_px / MUFU_OPS_PER_S}
 
 
 def phase_train_time(card, state, step, batch) -> dict:
@@ -1053,30 +1148,37 @@ def phase_train_time(card, state, step, batch) -> dict:
     pred, target = loss_inputs(torch.bfloat16, gen)
     mask = torch.ones(TRAIN_BATCH, device=DEVICE)
     coef = torch.full((1,), 1.0 / pred.numel(), device=DEVICE)
+    # What one launch costs the card: an empty kernel, replayed the same way.
+    floor = graph_ms(lambda: torch.cuda._sleep(0))
+    log("6 train", f"{card}: launch floor (an empty kernel, CUDA-graph "
+        f"replay) {floor:.4f} ms")
     res = {}
     for name, kernel, plain, bound in (
             ("fused_depth_loss",
              lambda: fused_depth_loss_fwd(pred, target),
              lambda: fused_depth_loss_fwd_plain(pred, target),
-             loss_bound(LOSS_FWD_OPS_PER_PX, 2 + 4)),
+             loss_bound(LOSS_FWD_OPS_PER_PX, LOSS_FWD_MUFU_PER_PX, 2 + 4)),
             ("fused_depth_loss_bwd",
              lambda: fused_depth_loss_bwd(pred, target, mask, coef),
              lambda: fused_depth_loss_bwd_plain(pred, target, mask, coef),
-             loss_bound(LOSS_BWD_OPS_PER_PX, 2 + 4 + 2))):
-        # ms: the kernel's device time, replayed from a CUDA graph; the
+             loss_bound(LOSS_BWD_OPS_PER_PX, LOSS_BWD_MUFU_PER_PX,
+                        2 + 4 + 2))):
+        # ms: the call's device time, replayed from a CUDA graph; the
         # wrapper's whole call, host included, is what CUDA events over a
         # loop of eager calls see.
         ms = graph_ms(kernel)
         call_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        tb, to = bound
-        res[name] = dict(ms=ms, graph_ms=ms, plain_ms=plain_ms, bytes=tb,
-                         ops=to)
+        ops = max(bound["ops"], bound["mufu"])
+        res[name] = dict(ms=ms, graph_ms=ms, plain_ms=plain_ms,
+                         bytes=bound["bytes"], ops=ops, floor_ms=floor)
         log("6 train", f"{card}: {name} ({TRAIN_BATCH},{LOSS_HW[0]},"
             f"{LOSS_HW[1]}) bf16 pred: kernel {ms:.4f} ms (CUDA graph), "
             f"wrapper call {call_ms:.4f} ms (CUDA events), plain "
-            f"{plain_ms:.4f} ms, bound {max(tb, to):.4f} ms "
-            f"({'bytes' if tb >= to else 'operations'}, kernel "
-            f"{ms / max(tb, to):.1f}x)")
+            f"{plain_ms:.4f} ms; bytes bound {bound['bytes']:.4f} ms, MUFU "
+            f"floor {bound['mufu']:.4f} ms, f32 operations "
+            f"{bound['ops']:.4f} ms, launch floor {floor:.4f} ms (kernel "
+            f"{ms / max(bound['bytes'], ops):.1f}x its bound, "
+            f"{ms - floor:.4f} ms above the launch floor)")
     return res
 
 

@@ -83,12 +83,15 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     return infer
 
 
-def make_serving_fn(model: nn.Module, *, upsample_to=(480, 640),
-                    dtype=torch.bfloat16, preprocess: bool = True,
-                    device=None):
-    """The serving pipeline every app routes through: uint8 frames in, f32
-    depth at frame size out, bf16 in between. The JAX package chooses
-    among staged, tiled and int8 forms here; the port has the monolithic
-    form only (ROADMAP A13)."""
+def make_serving_fn(model: nn.Module, *, upsample_to=None, dtype=None,
+                    preprocess: bool = False, device=None):
+    """The serving pipeline every app routes through, with the JAX
+    package's defaults: normalized f32 NHWC images in, f32 depth at the
+    model's output size out, the model in its own dtype. A deployment that
+    serves raw frames passes ``preprocess=True`` (uint8 in),
+    ``upsample_to=(480, 640)`` (depth at frame size) and
+    ``dtype=torch.bfloat16``. The JAX package chooses among staged, tiled
+    and int8 forms here; the port has the monolithic form only (ROADMAP
+    A13)."""
     return make_infer_fn(model, upsample_to=upsample_to, dtype=dtype,
                          preprocess=preprocess, device=device)

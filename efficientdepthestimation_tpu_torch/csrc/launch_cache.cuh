@@ -34,6 +34,14 @@ inline cudaError_t allow_smem(const void* kernel, int smem) {
   return err;
 }
 
+// The current device's SM count.
+inline cudaError_t sm_count(int* sms) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
 // Blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
 // memory) that the current device holds at once: at least one an SM.
 inline cudaError_t resident_blocks(const void* kernel, int threads, int smem,

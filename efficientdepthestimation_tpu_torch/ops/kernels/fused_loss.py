@@ -5,8 +5,10 @@ Counterpart of ``efficientdepthestimation_tpu/ops/pallas/fused_loss.py``.
 the four loss terms to per-image sums (``fused_depth_loss_fwd``) and takes
 the masked mean in PyTorch; its backward writes dL/dpred in one pass
 (``fused_depth_loss_bwd``). On CUDA tensors both launch the hand-written
-kernels of ``csrc/fused_depth_loss.cu``; on CPU tensors they run the plain
-PyTorch versions ``fused_depth_loss_fwd_plain`` and
+kernels of ``csrc/fused_depth_loss.cu``, one device operation a call with
+no scratch memory; the kernels' source picks the launch shape
+(``launch_config`` asks it once a shape). On CPU tensors they run the
+plain PyTorch versions ``fused_depth_loss_fwd_plain`` and
 ``fused_depth_loss_bwd_plain``. Neither ever falls back to the other.
 """
 
@@ -36,6 +38,7 @@ __all__ = ["fused_depth_loss", "fused_depth_loss_fwd",
            "fused_depth_loss_bwd_plain", "masked_total"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CUDA_INVALID_VALUE = 1
 
 
 def _image_stack(x: torch.Tensor) -> torch.Tensor:
@@ -95,17 +98,46 @@ def fused_depth_loss_bwd_plain(pred: torch.Tensor, target: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_depth_loss")
-    lib.ede_fused_depth_loss_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.ede_fused_depth_loss_tiles.restype = ctypes.c_int
+    lib.ede_fused_depth_loss_config.argtypes = (
+        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    lib.ede_fused_depth_loss_config.restype = ctypes.c_int
     lib.ede_fused_depth_loss_fwd.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
         + [ctypes.c_void_p])
     lib.ede_fused_depth_loss_fwd.restype = ctypes.c_int
     lib.ede_fused_depth_loss_bwd.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
         + [ctypes.c_void_p])
     lib.ede_fused_depth_loss_bwd.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(backward: bool, dtype: torch.dtype, vec: bool, n: int,
+                  h: int, w: int, device: int) -> tuple[int, ...]:
+    """(cluster, band, strips, rows, threads, smem) of a kernel of the pair
+    for an (n, h, w) call on card ``device``, as the kernel's source picks
+    it (``choose_config`` in csrc/fused_depth_loss.cu), once a shape.
+    ``cluster`` is the blocks an image, a thread-block cluster in the
+    forward. A ValueError for w above 2048, which the kernels refuse."""
+    out = (ctypes.c_int * 6)()
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.ede_fused_depth_loss_config(int(backward), _DTYPES[dtype],
+                                              int(vec), n, h, w, out)
+    if err == _CUDA_INVALID_VALUE:
+        raise ValueError(f"fused_depth_loss: unsupported shape ({n},{h},{w}) "
+                         "(W at most 2048)")
+    build.check(lib, err, "fused_depth_loss config")
+    return tuple(out)
+
+
+def vector_path(*tensors: torch.Tensor) -> bool:
+    """Whether the kernels take 16-byte loads and stores for these (N, H, W)
+    tensors: W a multiple of 8 and every pointer 16-byte aligned; else they
+    take the scalar path."""
+    return tensors[0].shape[-1] % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_pair(name: str, pred: torch.Tensor, target: torch.Tensor) -> None:
@@ -136,18 +168,15 @@ def fused_depth_loss_fwd(pred: torch.Tensor,
                          f"{pred.device}")
     _check_pair("fused_depth_loss_fwd", pred, target)
     n, h, w = pred.shape
+    vec = vector_path(pred, target)
+    config = launch_config(False, pred.dtype, vec, n, h, w, pred.device.index)
+    sums = torch.empty((n, 4), dtype=torch.float32, device=pred.device)
     lib = _lib()
-    tiles = lib.ede_fused_depth_loss_tiles(h, w)
-    kw = dict(dtype=torch.float32, device=pred.device)
-    partials = torch.empty((n, tiles, 4), **kw)
-    counters = torch.zeros((n,), dtype=torch.int32, device=pred.device)
-    sums = torch.empty((n, 4), **kw)
     with torch.cuda.device(pred.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ede_fused_depth_loss_fwd(
-            _DTYPES[pred.dtype], pred.data_ptr(), target.data_ptr(),
-            partials.data_ptr(), counters.data_ptr(), sums.data_ptr(),
-            n, h, w, stream)
+            _DTYPES[pred.dtype], int(vec), pred.data_ptr(), target.data_ptr(),
+            sums.data_ptr(), n, h, w, *config, stream)
     build.check(lib, err, "fused_depth_loss_fwd")
     fused_depth_loss_fwd.launches += 1
     return sums
@@ -177,12 +206,15 @@ def fused_depth_loss_bwd(pred: torch.Tensor, target: torch.Tensor,
             raise ValueError("fused_depth_loss_bwd: mask and coef must be "
                              f"contiguous on {pred.device}")
     dp = torch.empty_like(pred)
+    vec = vector_path(pred, target, dp)
+    config = launch_config(True, pred.dtype, vec, n, h, w, pred.device.index)
     lib = _lib()
     with torch.cuda.device(pred.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ede_fused_depth_loss_bwd(
-            _DTYPES[pred.dtype], pred.data_ptr(), target.data_ptr(),
-            mask.data_ptr(), coef.data_ptr(), dp.data_ptr(), n, h, w, stream)
+            _DTYPES[pred.dtype], int(vec), pred.data_ptr(), target.data_ptr(),
+            mask.data_ptr(), coef.data_ptr(), dp.data_ptr(), n, h, w,
+            *config, stream)
     build.check(lib, err, "fused_depth_loss_bwd")
     fused_depth_loss_bwd.launches += 1
     return dp

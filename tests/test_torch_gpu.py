@@ -21,7 +21,10 @@ from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
 )
 from efficientdepthestimation_tpu_torch.models.common import randomize_
 from efficientdepthestimation_tpu_torch.models.registry import build_model
-from efficientdepthestimation_tpu_torch.ops.kernels import depthwise
+from efficientdepthestimation_tpu_torch.ops.kernels import (
+    depthwise,
+    fused_loss,
+)
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
     depthwise_bn_swish_plain,
@@ -347,7 +350,8 @@ def test_serving_on_card_matches_fixture():
     np.testing.assert_allclose(out32.numpy(), fixture["depth"], rtol=1e-3,
                                atol=1e-3)
     dw, up = depthwise_bn_swish.launches, upsample_conv.launches
-    out = make_serving_fn(model, upsample_to=None)(frames)[..., 0].cpu()
+    out = make_serving_fn(model, dtype=torch.bfloat16, preprocess=True)(
+        frames)[..., 0].cpu()
     assert (depthwise_bn_swish.launches - dw,
             upsample_conv.launches - up) == (16, 4)
     err = np.abs(out.numpy() - fixture["depth"])
@@ -367,7 +371,8 @@ def test_lr_serving_on_card_matches_fixture():
             upsample_conv.launches - up) == (16, 0)
     np.testing.assert_allclose(out32.numpy(), fixture["depth"], rtol=1e-3,
                                atol=1e-3)
-    out = make_serving_fn(model, upsample_to=None)(frames)[..., 0].cpu()
+    out = make_serving_fn(model, dtype=torch.bfloat16, preprocess=True)(
+        frames)[..., 0].cpu()
     err = np.abs(out.numpy() - fixture["depth"])
     assert err.max() <= 0.1 and err.mean() <= 0.01  # as chip_smoke.py
 
@@ -398,31 +403,48 @@ def test_config_on_card_matches_cpu(encoder, decoder, seed):
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4 * scale)
 
 
-def _loss_args(dtype, shape=(5, 37, 70), seed=0):
-    """pred in ``dtype`` and f32 target on the card; image 0 flat in both,
-    image 1 with pred == target."""
+def _loss_args(dtype, shape=(5, 37, 70), seed=0, offset=0):
+    """pred in ``dtype`` and f32 target on the card, in 1-9 on a grid of
+    2^-8; where there are 3 images or more, image 0 flat in both and image
+    1 with pred == target. ``offset`` elements shift pred off its
+    allocation's 16-byte alignment.
+
+    The grid keeps every Sobel sum exact in f32, in any order of addition,
+    so both versions see the same zero differences: the gradient of |e|
+    jumps from -2 to 2 at e = 0, and on continuous data a difference
+    within rounding of 0 (a few pixels in 5 million) would take either
+    side. The values keep up to 12 significant bits, which a kernel that
+    staged f32 at bf16's 8 would lose (as chip_smoke.loss_grid)."""
     g = torch.Generator().manual_seed(seed)
-    target = torch.rand(shape, generator=g) * 8 + 1
-    pred = torch.rand(shape, generator=g) * 8 + 1
-    pred[0] = target[0] = 3.0
-    pred[1] = target[1]
-    return pred.to(dtype).cuda(), target.cuda()
+    target = torch.round((torch.rand(shape, generator=g) * 8 + 1) * 256) / 256
+    pred = torch.round((torch.rand(shape, generator=g) * 8 + 1) * 256) / 256
+    if shape[0] >= 3:
+        pred[0] = target[0] = 3.0
+        pred[1] = target[1]
+    pred = pred.to(dtype).cuda()
+    if offset:
+        pred = torch.empty(pred.numel() + offset, dtype=dtype,
+                           device="cuda")[offset:].view(shape).copy_(pred)
+    return pred, target.cuda()
 
 
 # Kernel vs plain version: per-image sums of up to 17,328 O(1) terms in
 # another order (rtol 1e-5, atol 1e-2); dp f32 to 1e-4 relative and 1e-5 of
 # its largest value, bf16 within one bf16 step (2^-8 relative).
-@pytest.mark.parametrize("dtype,dp_tol", [(torch.float32, 1e-4),
-                                          (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shape", [(5, 37, 70), (64, 114, 152)])
-def test_loss_kernels_match_plain_on_card(dtype, dp_tol, shape):
-    _need_card()
-    pred, target = _loss_args(dtype, shape)
+LOSS_DP_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _check_loss(pred, target):
+    """Both kernels against their plain versions, at num_valid N and at a
+    smaller one; flat and masked images get an exactly zero gradient."""
+    shape, dtype = tuple(pred.shape), pred.dtype
+    dp_tol = LOSS_DP_TOL[dtype]
     sums = fused_depth_loss_fwd(pred, target)
     ref = fused_depth_loss_fwd_plain(pred, target)
     torch.testing.assert_close(sums, ref, rtol=1e-5, atol=1e-2)
     assert torch.equal(sums, fused_depth_loss_fwd(pred, target))  # no atomics
-    for num_valid in (shape[0], 3):
+    # a smaller num_valid where it leaves a random image among the valid
+    for num_valid in (shape[0], 3) if shape[0] > 3 else (shape[0],):
         mask = (torch.arange(shape[0], device="cuda") < num_valid).float()
         coef = torch.full((1,), 0.7 / (num_valid * shape[1] * shape[2]),
                           device="cuda")
@@ -432,13 +454,152 @@ def test_loss_kernels_match_plain_on_card(dtype, dp_tol, shape):
         scale = dp_ref.float().abs().max().item()
         torch.testing.assert_close(dp.float(), dp_ref.float(), rtol=dp_tol,
                                    atol=max(dp_tol, 1e-5) * scale)
-        assert not dp[0].any()  # flat: exactly zero, sign(0) = 0
+        if shape[0] >= 3:
+            assert not dp[0].any()  # flat: exactly zero, sign(0) = 0
         assert not dp[num_valid:].any()
         torch.testing.assert_close(masked_total(sums, mask, shape[1] *
                                                 shape[2]),
                                    masked_total(ref, mask, shape[1] *
                                                 shape[2]), rtol=1e-5,
                                    atol=1e-6)
+
+
+# The training shape and a ragged one; then shapes that stress the
+# bands and clusters: one image, images of 5 rows, W = 70 (not a multiple
+# of 8: the scalar path) with 229 rows, and 300 images.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 37, 70), (64, 114, 152),
+                                   (1, 114, 152), (3, 5, 7), (2, 229, 70),
+                                   (300, 114, 152)])
+def test_loss_kernels_match_plain_on_card(dtype, shape):
+    _need_card()
+    _check_loss(*_loss_args(dtype, shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loss_kernels_take_unaligned_pred(dtype):
+    """pred one element off 16-byte alignment (a slice): the scalar path,
+    the same values."""
+    _need_card()
+    pred, target = _loss_args(dtype, (6, 114, 152), offset=1)
+    assert pred.data_ptr() % 16 != 0
+    assert not fused_loss.vector_path(pred, target)
+    assert fused_loss.vector_path(*_loss_args(dtype, (6, 114, 152)))
+    _check_loss(pred, target)
+
+
+def test_loss_sums_hold_across_streams_and_graphs():
+    """No scratch and no counters: launches on two streams at once, and a
+    launch captured in a CUDA graph, give the bits of a launch alone."""
+    _need_card()
+    calls = [_loss_args(torch.bfloat16, (64, 114, 152), seed=5),
+             _loss_args(torch.float32, (7, 229, 70), seed=6)]
+    refs = [fused_depth_loss_fwd(*args) for args in calls]
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    sums = [[], []]
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(20):
+        for i, (s, args) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(s):
+                sums[i].append(fused_depth_loss_fwd(*args))
+    torch.cuda.synchronize()
+    for ref, got in zip(refs, sums):
+        assert all(torch.equal(ref, g) for g in got)
+
+    args, ref = calls[0], refs[0]
+    streams[0].wait_stream(main)
+    with torch.cuda.stream(streams[0]):
+        fused_depth_loss_fwd(*args)
+    main.wait_stream(streams[0])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph_sums = fused_depth_loss_fwd(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph_sums, ref)
+    assert torch.equal(fused_depth_loss_fwd(*args), ref)
+
+
+def _device_records(fn) -> int:
+    """Device records (kernels, memsets, copies) in a profile of ``fn()``;
+    a trace that holds none is traced again (CUPTI now and then drops
+    one), up to 5 times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        if n:
+            return n
+    return 0
+
+
+def test_loss_calls_are_one_device_operation():
+    """Each wrapper call is its kernel alone: no fill, no memset, and the
+    forward allocates nothing but its (N, 4) sums."""
+    _need_card()
+    pred, target = _loss_args(torch.bfloat16, (64, 114, 152))
+    mask = torch.ones(64, device="cuda")
+    coef = torch.full((1,), 1e-6, device="cuda")
+    assert _device_records(lambda: fused_depth_loss_fwd(pred, target)) == 1
+    assert _device_records(
+        lambda: fused_depth_loss_bwd(pred, target, mask, coef)) == 1
+    key = "allocation.all.allocated"
+    before = torch.cuda.memory_stats()[key]
+    sums = fused_depth_loss_fwd(pred, target)
+    assert torch.cuda.memory_stats()[key] - before == 1
+    assert sums.shape == (64, 4)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("shape", [(64, 114, 152), (1, 114, 152), (3, 5, 7),
+                                   (2, 229, 70), (300, 114, 152)])
+def test_loss_launch_config_covers_and_fits(backward, shape):
+    """The pair's launch shape, from its source: whole clusters of at most 8
+    blocks whose bands cover the image, a strip of threads per 4 columns
+    within 512 threads; at the training shape, clusters of more than one
+    block."""
+    _need_card()
+    n, h, w = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        for vec in (w % 8 == 0, False):
+            cluster, band, strips, rows, threads, smem = \
+                fused_loss.launch_config(backward, dtype, vec, n, h, w, 0)
+            assert 1 <= cluster <= 8 and band * cluster >= h
+            assert band * (cluster - 1) < h  # no block without rows
+            assert 1 <= strips <= band and rows >= 1
+            assert -(-w // 4) * strips <= threads <= 512
+            assert threads % 32 == 0 and 0 < smem <= 200 * 1024
+            if shape == (64, 114, 152):
+                assert cluster > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loss_kernels_refuse_rows_wider_than_2048(dtype):
+    """A thread owns a 4-pixel quad of a row, so the pair takes rows of up
+    to 2048 pixels: the widest agrees with the plain versions, and a wider
+    call (scalar and 16-byte path) raises before any launch."""
+    _need_card()
+    _check_loss(*_loss_args(dtype, (2, 5, 2048)))
+    mask = torch.ones(2, device="cuda")
+    coef = torch.full((1,), 1e-6, device="cuda")
+    launches = (fused_depth_loss_fwd.launches, fused_depth_loss_bwd.launches)
+    for w in (2049, 4096):
+        pred, target = _loss_args(dtype, (2, 5, w))
+        with pytest.raises(ValueError, match="at most 2048"):
+            fused_depth_loss_fwd(pred, target)
+        with pytest.raises(ValueError, match="at most 2048"):
+            fused_depth_loss_bwd(pred, target, mask, coef)
+    assert (fused_depth_loss_fwd.launches,
+            fused_depth_loss_bwd.launches) == launches
 
 
 def test_loss_launch_counters_count_card_launches():

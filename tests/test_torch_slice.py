@@ -11,6 +11,8 @@ upsample_to=(480, 640))``. The committed fixture
 which has no JAX; here JAX must still reproduce it and the port match it.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -120,14 +122,36 @@ def test_serving_fn_matches_jax(jax_model, port_model):
     model, variables = jax_model
     ref = japps.make_infer_fn(model, variables, upsample_to=(480, 640),
                               preprocess=True)(jnp.asarray(frames))
-    serve = make_serving_fn(port_model, dtype=torch.float32, device="cpu")
+    serve = make_serving_fn(port_model, upsample_to=(480, 640),
+                            dtype=torch.float32, preprocess=True,
+                            device="cpu")
     out = serve(torch.from_numpy(frames))
     assert out.shape == (2, 480, 640, 1)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MODEL_TOL)
 
 
+def test_serving_fn_defaults_match_jax(jax_model, port_model):
+    """``make_serving_fn`` with no option in both packages: the same
+    defaults, so normalized f32 images in and f32 depth at the model's
+    output size out, the same values."""
+    port = inspect.signature(make_serving_fn).parameters
+    ref = inspect.signature(japps.make_serving_fn).parameters
+    for name in ("upsample_to", "dtype", "preprocess"):
+        assert port[name].default == ref[name].default, name
+    images = np.random.default_rng(3).standard_normal(
+        (2, 228, 304, 3)).astype(np.float32)
+    model, variables = jax_model
+    expected = japps.make_serving_fn(model, variables)(jnp.asarray(images))
+    out = make_serving_fn(port_model, device="cpu")(torch.from_numpy(images))
+    assert expected.shape == out.shape == (2, 114, 152, 1)
+    assert expected.dtype == jnp.float32 and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(expected),
+                               **MODEL_TOL)
+
+
 def test_bf16_serving_near_fixture(port_model, fixture):
-    serve = make_serving_fn(port_model, upsample_to=None, device="cpu")
+    serve = make_serving_fn(port_model, dtype=torch.bfloat16,
+                            preprocess=True, device="cpu")
     out = serve(torch.from_numpy(fixture_frames()[:2]))[..., 0]
     assert out.dtype == torch.float32
     err = np.abs(out.numpy() - fixture["depth"][:2])

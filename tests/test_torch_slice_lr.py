@@ -136,14 +136,17 @@ def test_serving_fn_matches_jax(jax_model, port_model):
     model, variables = jax_model
     ref = japps.make_infer_fn(model, variables, upsample_to=(480, 640),
                               preprocess=True)(jnp.asarray(frames))
-    serve = make_serving_fn(port_model, dtype=torch.float32, device="cpu")
+    serve = make_serving_fn(port_model, upsample_to=(480, 640),
+                            dtype=torch.float32, preprocess=True,
+                            device="cpu")
     out = serve(torch.from_numpy(frames))
     assert out.shape == (2, 480, 640, 1)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **MODEL_TOL)
 
 
 def test_bf16_serving_near_fixture(port_model, fixture):
-    serve = make_serving_fn(port_model, upsample_to=None, device="cpu")
+    serve = make_serving_fn(port_model, dtype=torch.bfloat16,
+                            preprocess=True, device="cpu")
     out = serve(torch.from_numpy(fixture_frames()[:2]))[..., 0]
     assert out.dtype == torch.float32
     # the serving fn's cast (``model.to(dtype)`` of a copy) takes every
