@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one card: ENB0-HU serving and training,
-and serving of the other released configurations.
+serving of the other released configurations, and evaluation.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -50,18 +50,34 @@ Phases, one output line each (more for the per-site detail):
      the same frames with each one's exact launches, its bf16 output
      against its f32 forward on the card, frames/s, busy time and idle
      share, the stages, peak memory, and the kernels' times at the shapes
-     ENB4-HU and RN50-HU give them.
+     ENB4-HU and RN50-HU give them;
+  9. evaluation: ENB0-HU and ENB0-LR from their ``.ede`` in f32 over the
+     first 60 test pairs of ``generate_dataset(seed=0)``, built in memory,
+     through ``apps.evaluate.evaluate_dataset`` at batch 8 and 1, each
+     against the JAX evaluation fixture (depth metrics, δ, edge
+     averages), with exact launches a forward (16 + 4, 16 + 0), batch 1
+     against batch 8, eval images/s, busy time, idle share and peak memory
+     (and the stretch of the batch-1 pass where the peak arises); each
+     model's kernels against their plain versions at its sites at batch 8
+     and 1 (f32, bf16); the batch-1 serving latency of each; ENB0-HU's
+     kernels' f32 batch-1 times; ``test_nyu``'s compute at batch 8 against
+     the f32 forward; and
+     ``inference_benchmark``'s trials of both checkpoints (bf16, batch 8).
 
-It prints a JSON line of per-configuration figures, a JSON line of
-per-kernel figures, then, as its last line, ``{"ok": true, "device":
-{...}}``. Any failure raises, so the script exits non-zero without that
-line; so does a machine without a CUDA card.
+It prints a JSON line of the evaluation figures, a JSON line of
+per-configuration figures, a JSON line of per-kernel figures, then, as its
+last line, ``{"ok": true, "device": {...}}``. Any failure raises, so the
+script exits non-zero without that line; so does a machine without a CUDA
+card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -78,9 +94,25 @@ from efficientdepthestimation_tpu_torch.apps.common import (
     make_infer_fn,
     make_serving_fn,
 )
+from efficientdepthestimation_tpu_torch.apps.evaluate import (
+    EDGE_KEYS,
+    evaluate_dataset,
+)
+from efficientdepthestimation_tpu_torch.apps.inference_benchmark import (
+    SUMMARY_COLUMNS,
+    benchmark_row,
+    summarize,
+)
+from efficientdepthestimation_tpu_torch.apps.test_nyu import (
+    MAX_DEPTH_M,
+    depth_maps_mm,
+)
 from efficientdepthestimation_tpu_torch.checkpoints.convert import to_jax_leaf
+from efficientdepthestimation_tpu_torch.data.datasets import batch_iterator
 from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+    TEST_SEED_OFFSET,
     synthetic_train_set,
+    eval_pair,
 )
 from efficientdepthestimation_tpu_torch.data.transforms import (
     draw_augmentation,
@@ -134,6 +166,21 @@ TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                              "torch_train_enb0_hu.npz")
 LR_CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-LR-synthetic.ede")
 LR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_enb0_lr.npz")
+EVAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_eval_enb0.npz")
+# Phase 9 evaluates each checkpoint (fixture prefix, launches of one
+# forward: depthwise, upsample-conv) on the first EVAL_PAIRS test pairs of
+# generate_dataset(seed=0) at each of EVAL_BATCHES, in f32, as
+# tests/make_torch_eval_fixture.py does in the JAX package.
+EVAL_CONFIGS = {"ENB0-HU": (CHECKPOINT, "hu", (16, 4)),
+                "ENB0-LR": (LR_CHECKPOINT, "lr", (16, 0))}
+EVAL_PAIRS, EVAL_BATCHES = 60, (8, 1)
+EVAL_SUM_KEYS = ("mae", "mse", "abs_rel", "log10", "delta1", "delta2",
+                 "delta3", "batch_size")
+EVAL_TRACKER_KEYS = ("mae", "mse", "abs_rel", "log10", "delta1", "delta2",
+                     "delta3", "rmse")
+LATENCY_CALLS = 20  # batch-1 serving calls timed one by one
+PEAK_STAGES = 4  # stretches of the largest peak memory printed
+BENCH_TRIALS = 2
 # The configurations phase 8 serves with random weights: (encoder, decoder,
 # randomize_ seed, launches of one forward: depthwise, upsample-conv).
 RANDOM_CONFIGS = {
@@ -193,6 +240,17 @@ BF16_LR_MAX_ABS, BF16_LR_MEAN_ABS = 0.1, 0.01
 # shows max 0.011-0.035 and mean 0.0022-0.0101; about 3x that for the
 # card.
 BF16_RANDOM_MAX_REL, BF16_RANDOM_MEAN_REL = 0.15, 0.03
+# Phase 9's evaluation in f32 on the card against the JAX package's on the
+# CPU (tests/fixtures/torch_eval_enb0.npz), TF32 off. A CPU run of the port
+# over the same 60 pairs (both models, batch 8 and 1) shows the depth
+# metrics (MAE, MSE, REL, LOG10, RMSE) within 4.6e-7 relative, δ1-δ3
+# within 2.4e-7 and the edge averages within 2.8e-6 absolute; the card's
+# convolutions sum in other orders, so depth metrics to 1e-4 relative, and
+# δ and edge averages, which count pixels on either side of a threshold (one
+# pixel is 1/69,312 of an image), to 2e-3 (~140 pixels an image). LOG10 is
+# compared at the same batch size only: the reference does not scale it by
+# the batch (util.py:68). Batch 1 against batch 8 on the card: the same.
+EVAL_DEPTH_RTOL, EVAL_COUNT_ATOL = 1e-4, 2e-3
 # Loss kernel pair vs its plain versions, same inputs on the card.
 #   sums: per-image sums of 17,328 O(1) terms, added in another order
 #         (threads, warps, a cluster's blocks) than the plain reduction,
@@ -290,20 +348,20 @@ def main_path_sites(model) -> tuple[list[dict], list[dict], list[dict]]:
     return dw_sites, up_sites, einsum_sites
 
 
-def dw_inputs(site: dict, dtype, gen) -> tuple:
+def dw_inputs(site: dict, dtype, gen, batch: int = BATCH) -> tuple:
     block = site["block"]
     h, w = site["hw"]
-    x = torch.randn(BATCH, h, w, site["c"], generator=gen, device=DEVICE)
+    x = torch.randn(batch, h, w, site["c"], generator=gen, device=DEVICE)
     taps = block._depthwise_conv.weight[:, 0].permute(1, 2, 0)
     scale, bias = block._bn1.folded()
     return (x.to(dtype), taps.to(dtype).contiguous(), scale.contiguous(),
             bias.contiguous())
 
 
-def up_inputs(site: dict, model, dtype, gen) -> tuple:
+def up_inputs(site: dict, model, dtype, gen, batch: int = BATCH) -> tuple:
     up = model.get_submodule(site["name"])
     h, w = site["hw"]
-    x = torch.randn(BATCH, h, w, site["c"], generator=gen, device=DEVICE)
+    x = torch.randn(batch, h, w, site["c"], generator=gen, device=DEVICE)
     k = torch.cat([up.conv1.weight, up.conv2.weight], 0).permute(2, 3, 1, 0)
     return x.to(dtype), k.to(dtype).contiguous()
 
@@ -315,24 +373,36 @@ def dw_out_hw(site: dict) -> tuple[int, int]:
     return (h + pt + pb - k) // s + 1, (w + pl + pr - k) // s + 1
 
 
-def dw_bound(site: dict) -> tuple[float, float]:
-    """(bytes time, operations time) in ms of one bf16 launch at BATCH."""
+def dw_bound(site: dict, batch: int = BATCH, itemsize: int = 2
+             ) -> tuple[float, float]:
+    """(bytes time, operations time) in ms of one launch at ``batch`` with
+    x, taps and y of ``itemsize`` bytes (2: bf16, 4: f32)."""
     h, w = site["hw"]
     oh, ow = dw_out_hw(site)
     c, k = site["c"], site["k"]
-    nbytes = (BATCH * h * w * c * 2 + k * k * c * 2 + 2 * c * 4
-              + BATCH * oh * ow * c * 2 + BATCH * c * 4)
-    ops = BATCH * oh * ow * c * (2 * k * k + 2)
+    nbytes = ((batch * h * w * c + k * k * c + batch * oh * ow * c)
+              * itemsize + 2 * c * 4 + batch * c * 4)
+    ops = batch * oh * ow * c * (2 * k * k + 2)
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
 
 
-def up_bound(site: dict) -> tuple[float, float]:
+def up_ops(site: dict, batch: int = BATCH) -> int:
+    """Operations of the conv5×5 at the upsampled size (2 a multiply-add)."""
+    hh, ww = site["size"]
+    return 2 * batch * hh * ww * 25 * site["c"] * site["o"]
+
+
+def up_bound(site: dict, batch: int = BATCH, itemsize: int = 2
+             ) -> tuple[float, float]:
+    """As ``dw_bound``; the operations at the peak of their type: bf16 on
+    the tensor cores, f32 on the CUDA cores."""
     h, w = site["hw"]
     hh, ww = site["size"]
     c, o = site["c"], site["o"]
-    nbytes = BATCH * h * w * c * 2 + 25 * c * o * 2 + BATCH * hh * ww * o * 2
-    ops = 2 * BATCH * hh * ww * 25 * c * o
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / BF16_OPS_PER_S
+    nbytes = (batch * h * w * c + 25 * c * o + batch * hh * ww * o) * itemsize
+    ops = up_ops(site, batch)
+    rate = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / rate
 
 
 def check_close(name, actual, expected, tol) -> float:
@@ -422,14 +492,19 @@ def phase_card() -> str:
     return out
 
 
-def phase_kernels(model, dw_sites, up_sites, label: str = "ENB0-HU") -> dict:
+def phase_kernels(model, dw_sites, up_sites, label: str = "ENB0-HU",
+                  batch: int = BATCH, phase: str = "3 kernels") -> dict:
+    """Each kernel against its plain version at every site of ``model`` at
+    ``batch``, in f32 and bf16; returns each dtype's worst error a kernel,
+    ``{dtype: {"depthwise": e, "upsample_conv": e}}``."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    errs = {"depthwise": 0.0, "upsample_conv": 0.0}
+    errs = {dtype: {"depthwise": 0.0, "upsample_conv": 0.0}
+            for dtype in (torch.float32, torch.bfloat16)}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[("depthwise", dtype)]
             for s in dw_sites:
-                args = dw_inputs(s, dtype, gen)
+                args = dw_inputs(s, dtype, gen, batch)
                 kw = dict(stride=s["stride"], padding=s["pad"])
                 y, sums = depthwise_bn_swish(*args, **kw)
                 y_ref, sums_ref = depthwise_bn_swish_plain(*args, **kw)
@@ -440,29 +515,28 @@ def phase_kernels(model, dw_sites, up_sites, label: str = "ENB0-HU") -> dict:
                 if not torch.equal(sums, depthwise_bn_swish(*args, **kw)[1]):
                     raise RuntimeError(f"{s['name']}: depthwise sums differ "
                                        "between launches")
-                if dtype == torch.bfloat16:
-                    errs["depthwise"] = max(errs["depthwise"], e)
-                log("3 kernels", f"{label} depthwise {s['name']} {dtype} "
-                    f"x=({BATCH},{s['hw'][0]},{s['hw'][1]},{s['c']}) "
+                errs[dtype]["depthwise"] = max(errs[dtype]["depthwise"], e)
+                log(phase, f"{label} depthwise {s['name']} {dtype} "
+                    f"x=({batch},{s['hw'][0]},{s['hw'][1]},{s['c']}) "
                     f"k{s['k']} s{s['stride']}: max|y-plain|={e:.3g} "
                     f"max|sums-plain|={es:.3g}")
             tol = TOL[("upsample_conv", dtype)]
             for s in up_sites:
-                x, k = up_inputs(s, model, dtype, gen)
+                x, k = up_inputs(s, model, dtype, gen, batch)
                 y = upsample_conv(x, k, s["size"])
                 y_ref = upsample_conv_plain(x, k, s["size"])
                 torch.cuda.synchronize()
                 e = check_close(s["name"], y, y_ref, tol["y"])
-                if dtype == torch.bfloat16:
-                    errs["upsample_conv"] = max(errs["upsample_conv"], e)
-                log("3 kernels", f"{label} upsample_conv {s['name']} "
-                    f"{dtype} x=({BATCH},{s['hw'][0]},{s['hw'][1]},"
+                errs[dtype]["upsample_conv"] = max(
+                    errs[dtype]["upsample_conv"], e)
+                log(phase, f"{label} upsample_conv {s['name']} "
+                    f"{dtype} x=({batch},{s['hw'][0]},{s['hw'][1]},"
                     f"{s['c']}) -> {s['size']}x{s['o']}: "
                     f"max|y-plain|={e:.3g}")
-    log("3 kernels", f"ok: {label}'s {len(dw_sites)} depthwise and "
-                     f"{len(up_sites)} upsample_conv sites agree with the "
-                     "plain versions in f32 and bf16, depthwise sums bitwise "
-                     f"equal across launches; (rtol, atol): {TOL}")
+    log(phase, f"ok: {label}'s {len(dw_sites)} depthwise and "
+               f"{len(up_sites)} upsample_conv sites at batch {batch} agree "
+               "with the plain versions in f32 and bf16, depthwise sums "
+               f"bitwise equal across launches; (rtol, atol): {TOL}")
     return errs
 
 
@@ -671,21 +745,23 @@ def stage_times(model, frames, card, phase: str, label: str) -> dict:
 
 
 def time_sites(model, card, dw_sites, up_sites, phase: str,
-               label: str) -> dict:
-    """Each kernel at each site of a model, bf16 at BATCH: its ms (CUDA
+               label: str, dtype=torch.bfloat16, batch: int = BATCH) -> dict:
+    """Each kernel at each site of a model, ``dtype`` at ``batch`` (by
+    default bf16 at BATCH): its ms (CUDA
     events over a loop of eager wrapper calls, as the first versions of
     these kernels were timed: what a serving forward pays, host included
     where the host is slower than the kernel), its CUDA-graph replay (the
     device time alone), its plain version, bound and yardstick; summed per
     forward."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
+    itemsize = torch.finfo(dtype).bits // 8
     res = {"depthwise": dict(ms=0.0, graph_ms=0.0, plain_ms=0.0, bytes=0.0,
                              ops=0.0, grouped_ms=0.0),
            "upsample_conv": dict(ms=0.0, graph_ms=0.0, plain_ms=0.0,
                                  bytes=0.0, ops=0.0, composition_ms=0.0)}
     with torch.inference_mode():
         for s in dw_sites:
-            args = dw_inputs(s, torch.bfloat16, gen)
+            args = dw_inputs(s, dtype, gen, batch)
             kw = dict(stride=s["stride"], padding=s["pad"])
             ms = cuda_ms(lambda: depthwise_bn_swish(*args, **kw))
             graph = graph_ms(lambda: depthwise_bn_swish(*args, **kw))
@@ -695,7 +771,7 @@ def time_sites(model, card, dw_sites, up_sites, phase: str,
             wk = args[1].permute(2, 0, 1).unsqueeze(1).contiguous()
             grouped = cuda_ms(lambda: F.conv2d(xp, wk, stride=s["stride"],
                                                groups=s["c"]))
-            tb, to = dw_bound(s)
+            tb, to = dw_bound(s, batch, itemsize)
             r = res["depthwise"]
             r["ms"] += ms
             r["graph_ms"] += graph
@@ -704,7 +780,7 @@ def time_sites(model, card, dw_sites, up_sites, phase: str,
             r["ops"] += to
             r["grouped_ms"] += grouped
             gbs = tb * HBM_BYTES_PER_S / 1e9 / ms
-            log(phase, f"{card}: {label} depthwise {s['name']} ({BATCH},"
+            log(phase, f"{card}: {label} depthwise {s['name']} ({batch},"
                 f"{s['hw'][0]},{s['hw'][1]},{s['c']}) k{s['k']} "
                 f"s{s['stride']}: kernel {ms:.4f} ms ({gbs:.0f} GB/s; "
                 f"CUDA graph {graph:.4f} ms), plain "
@@ -713,12 +789,12 @@ def time_sites(model, card, dw_sites, up_sites, phase: str,
                 f"reached {max(tb, to) / ms:.3f}), cuDNN grouped conv alone "
                 f"(partial yardstick) {grouped:.4f} ms")
         for s in up_sites:
-            x, k = up_inputs(s, model, torch.bfloat16, gen)
+            x, k = up_inputs(s, model, dtype, gen, batch)
             ms = cuda_ms(lambda: upsample_conv(x, k, s["size"]))
             graph = graph_ms(lambda: upsample_conv(x, k, s["size"]))
             plain = cuda_ms(lambda: upsample_conv_plain(x, k, s["size"]))
             comp = cuda_ms(lambda: composition(x, k, s["size"]))
-            tb, to = up_bound(s)
+            tb, to = up_bound(s, batch, itemsize)
             r = res["upsample_conv"]
             r["ms"] += ms
             r["graph_ms"] += graph
@@ -726,12 +802,12 @@ def time_sites(model, card, dw_sites, up_sites, phase: str,
             r["bytes"] += tb
             r["ops"] += to
             r["composition_ms"] += comp
-            log(phase, f"{card}: {label} upsample_conv {s['name']} ({BATCH},"
+            log(phase, f"{card}: {label} upsample_conv {s['name']} ({batch},"
                 f"{s['hw'][0]},{s['hw'][1]},{s['c']}) -> {s['size']}x"
                 f"{s['o']}: kernel {ms:.4f} ms "
-                f"({to * BF16_OPS_PER_S / ms / 1e12:.1f} TFLOP/s; CUDA "
+                f"({up_ops(s, batch) / ms / 1e9:.2f} TFLOP/s; CUDA "
                 f"graph {graph:.4f} ms), composition_ms {comp:.4f} "
-                "(F.interpolate + cuDNN conv2d, channels-last bf16; "
+                f"(F.interpolate + cuDNN conv2d, channels-last {dtype}; "
                 f"yardstick), plain {plain:.4f} ms, "
                 f"bound {max(tb, to):.4f} ms ("
                 f"{'bytes' if tb >= to else 'operations'}; share of bound "
@@ -740,11 +816,13 @@ def time_sites(model, card, dw_sites, up_sites, phase: str,
         if not r["ms"]:
             continue
         bound = max(r["bytes"], r["ops"])
+        yardstick = ("cuDNN grouped conv alone", r["grouped_ms"]) \
+            if name == "depthwise" else ("composition_ms", r["composition_ms"])
         log(phase, f"{card}: {label} {name} per forward: kernel "
             f"{r['ms']:.3f} ms (CUDA events over eager calls; CUDA-graph "
             f"replay {r['graph_ms']:.3f}), plain {r['plain_ms']:.3f} ms, "
             f"bound {bound:.3f} ms, share of bound reached "
-            f"{bound / r['ms']:.3f}")
+            f"{bound / r['ms']:.3f}; {yardstick[0]} {yardstick[1]:.3f} ms")
     return res
 
 
@@ -1182,6 +1260,279 @@ def phase_train_time(card, state, step, batch) -> dict:
     return res
 
 
+def eval_pairs(fx) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The first EVAL_PAIRS test pairs of ``generate_dataset(seed=0)``,
+    (uint8 RGB, uint16 mm), built in memory; their sums must be the
+    fixture's."""
+    pairs = [eval_pair(TEST_SEED_OFFSET + i) for i in range(EVAL_PAIRS)]
+    sums = tuple(sum(int(p[k].sum(dtype=np.int64)) for p in pairs)
+                 for k in (0, 1))
+    if sums != (int(fx["frames_sum"]), int(fx["depths_sum"])):
+        raise RuntimeError("evaluation pairs differ from the fixture's")
+    return pairs
+
+
+def quiet_eval(model, pairs, batch: int) -> dict:
+    """``evaluate_dataset`` on the card without its progress line: the
+    tracker's values and the edge averages in one dict."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        tracker, edges = evaluate_dataset(model, pairs, batch, device=DEVICE)
+    return tracker.to_dict() | edges
+
+
+def eval_counted(model, pairs, batch: int, per_forward: tuple[int, int]
+                 ) -> tuple[dict, dict, float]:
+    """One timed evaluation of ``pairs`` at ``batch`` with the serving
+    kernels' counts set to 0 just before it and read just after: each
+    forward (one a batch, the padded tail's included) must launch exactly
+    ``per_forward`` = (depthwise, upsample-conv). Returns the metrics, the
+    launches and the host seconds (the loop reads each batch's sums back,
+    so its end waits for the card)."""
+    counters = {"depthwise_bn_swish": depthwise_bn_swish,
+                "upsample_conv": upsample_conv}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    metrics = quiet_eval(model, pairs, batch)
+    dt = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    forwards = math.ceil(len(pairs) / batch)
+    if tuple(launches.values()) != tuple(forwards * n for n in per_forward):
+        raise RuntimeError(f"evaluation at batch {batch}: launches "
+                           f"{launches} in {forwards} forwards, expected "
+                           f"{per_forward[0]} + {per_forward[1]} a forward")
+    return metrics, launches, dt
+
+
+def check_metrics(name: str, ours: dict, ref: dict, skip=()) -> dict:
+    """Each metric of ``ref`` against ``ours``: δ and edge averages to
+    EVAL_COUNT_ATOL absolute, the others to EVAL_DEPTH_RTOL relative;
+    returns the errors, raises on one outside its tolerance."""
+    errs = {}
+    for k, v in ref.items():
+        if k in skip:
+            continue
+        counted = k.startswith(("delta", "edge"))
+        e = abs(ours[k] - v) / (1.0 if counted else abs(v))
+        if not e <= (EVAL_COUNT_ATOL if counted else EVAL_DEPTH_RTOL):
+            raise RuntimeError(f"{name}: {k} {ours[k]} against {v}")
+        errs[k] = e
+    return errs
+
+
+def fixture_metrics(fx, prefix: str, batch: int) -> dict:
+    return (dict(zip(EVAL_TRACKER_KEYS, fx[f"{prefix}/b{batch}/tracker"]))
+            | dict(zip(EDGE_KEYS, fx[f"{prefix}/b{batch}/edge"])))
+
+
+def serving_latency(serve, frame) -> dict:
+    """ms of one serving call of one frame, each call timed alone on the
+    host clock to its ``torch.cuda.synchronize()``, over LATENCY_CALLS
+    calls after WARMUP."""
+    for _ in range(WARMUP):
+        serve(frame)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(LATENCY_CALLS):
+        t0 = time.perf_counter()
+        serve(frame)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return dict(median_ms=float(np.median(times)),
+                mean_ms=float(np.mean(times)), min_ms=float(np.min(times)))
+
+
+def peak_by_stage(model, fn) -> list[tuple[str, float]]:
+    """Where the card's peak memory in one call of ``fn`` arises: the
+    peak above the memory allocated at the call's start, in GiB, in each
+    stretch between two consecutive entries or exits of ``model``'s
+    modules (read from the allocator's statistics, which it keeps as the
+    host issues the work), largest first."""
+    names = {m: n or "model" for n, m in model.named_modules()}
+    stretches, last = [], ["start"]
+    base = torch.cuda.memory_allocated()
+
+    def mark(label: str) -> None:
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        stretches.append((f"{last[0]} .. {label}", peak))
+        last[0] = label
+        torch.cuda.reset_peak_memory_stats()
+
+    hooks = []
+    for m in model.modules():
+        hooks.append(m.register_forward_pre_hook(
+            lambda mod, args: mark(f"enter {names[mod]}")))
+        hooks.append(m.register_forward_hook(
+            lambda mod, args, out: mark(f"exit {names[mod]}")))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        fn()
+        mark("end")
+    finally:
+        for h in hooks:
+            h.remove()
+    return sorted(stretches, key=lambda kv: -kv[1])
+
+
+def phase_eval_model(name: str, pairs, fx, card) -> dict:
+    """9: one checkpoint evaluated in f32 at each of EVAL_BATCHES against
+    the JAX fixture, its kernels held against their plain versions at the
+    sites of each of those batches, batch 1 against batch 8, where its
+    batch-1 peak memory arises, then its batch-1 serving latency."""
+    path, prefix, per_forward = EVAL_CONFIGS[name]
+    model = load_any_checkpoint(path, device=DEVICE)
+    dw_sites, up_sites, _ = main_path_sites(model)
+    if (len(dw_sites), len(up_sites)) != per_forward:
+        raise RuntimeError(f"{name}: found {len(dw_sites)} depthwise and "
+                           f"{len(up_sites)} upsample-conv sites")
+    result = dict(name=name, card=card, kernel_checks={})
+    got = {}
+    for b in EVAL_BATCHES:
+        errs = phase_kernels(model, dw_sites, up_sites, name, batch=b,
+                             phase="9 eval")
+        result["kernel_checks"][f"batch{b}"] = {
+            str(dtype).removeprefix("torch."): e for dtype, e in errs.items()}
+        quiet_eval(model, pairs[:b], b)  # one-time costs out of the timing
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30  # before the pass
+        got[b], launches, dt = eval_counted(model, pairs, b, per_forward)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        errs = check_metrics(f"{name} batch {b} vs fixture", got[b],
+                             fixture_metrics(fx, prefix, b))
+        worst_count = max(v for k, v in errs.items()
+                          if k.startswith(("delta", "edge")))
+        worst_depth = max(v for k, v in errs.items()
+                          if not k.startswith(("delta", "edge")))
+        ms = 1e3 * dt / math.ceil(EVAL_PAIRS / b)
+        busy, records, top = kernel_busy(
+            lambda: quiet_eval(model, pairs[:b], b))
+        result[f"batch{b}"] = dict(
+            images_per_s=EVAL_PAIRS / dt, ms_per_batch=ms, busy_ms=busy,
+            idle_share=1 - busy / ms, peak_gib=peak, held_gib=held,
+            launches=launches, metrics=got[b])
+        log("9 eval", f"{card}: {name} f32 evaluation of {EVAL_PAIRS} pairs "
+            f"at batch {b}: {EVAL_PAIRS / dt:.1f} images/s ({ms:.2f} ms a "
+            f"batch, host clock, eval_preprocess + forward + upsample + "
+            f"depth and edge sums + one copy back), kernels busy "
+            f"{busy:.2f} ms a batch ({records:.0f} records): device idle "
+            f"share {1 - busy / ms:.3f}; peak memory {peak:.3f} GiB "
+            f"({held:.3f} GiB held before the pass); "
+            f"launches {launches}; vs JAX fixture: worst depth metric "
+            f"{worst_depth:.3g} relative (<= {EVAL_DEPTH_RTOL}), worst "
+            f"δ/edge {worst_count:.3g} (<= {EVAL_COUNT_ATOL}); most device "
+            "ms a batch: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in top[:4]))
+        log("9 eval", f"{name} batch {b} metrics: "
+            + " ".join(f"{k} {v:.6f}" for k, v in got[b].items()))
+    errs = check_metrics(f"{name} batch 1 vs batch 8", got[1], got[8],
+                         skip=("log10",))
+    same = all(got[1][k] == got[8][k] for k in errs)
+    result["batch1_vs_8"] = dict(bit_identical=same, worst=max(errs.values()))
+    log("9 eval", f"{name}: batch 1 against batch 8, every metric but "
+        f"LOG10 within tolerance, worst {max(errs.values()):.3g}; "
+        f"bit-identical: {same}")
+
+    serve = make_serving_fn(model, upsample_to=FRAME_HW, preprocess=True,
+                            device=DEVICE)
+    frame = torch.from_numpy(pairs[0][0][None]).to(DEVICE)
+    lat = serving_latency(serve, frame)
+    busy, records, top = kernel_busy(lambda: serve(frame))
+    lat.update(busy_ms=busy, idle_share=1 - busy / lat["median_ms"])
+    result["latency_b1"] = lat
+    log("9 eval", f"{card}: {name} batch-1 serving latency, f32, a uint8 "
+        f"{FRAME_HW} frame in, depth at frame size out: median "
+        f"{lat['median_ms']:.2f} ms (mean {lat['mean_ms']:.2f}, min "
+        f"{lat['min_ms']:.2f}; {1e3 / lat['median_ms']:.1f} frames/s), "
+        f"kernels busy {busy:.3f} ms a call ({records:.0f} records): idle "
+        f"share {lat['idle_share']:.3f}; most device ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in top[:4]))
+    stages = peak_by_stage(model, lambda: quiet_eval(model, pairs[:1], 1))
+    result["peak_by_stage_b1"] = stages[:PEAK_STAGES]
+    log("9 eval", f"{name} batch-1 evaluation, peak memory above the "
+        "memory held at its start, by the stretch between two module "
+        "entries or exits (GiB): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in stages[:PEAK_STAGES]))
+    if name == "ENB0-HU":
+        res = time_sites(model, card, dw_sites, up_sites, "9 eval", name,
+                         dtype=torch.float32, batch=1)
+        f32_errs = result["kernel_checks"]["batch1"]["float32"]
+        result["kernels_b1_f32"] = {
+            k: dict(ms=r["ms"], graph_ms=r["graph_ms"],
+                    plain_ms=r["plain_ms"],
+                    bound_ms=max(r["bytes"], r["ops"]),
+                    max_abs_err=f32_errs[k])
+            for k, r in res.items()}
+        result["test_nyu"] = phase_test_nyu(model, pairs)
+    return result
+
+
+def phase_test_nyu(model, pairs) -> dict:
+    """``test_nyu``'s compute at batch 8 (f32 serving at frame size, > 10 m
+    to 0, ×1000) against the same arithmetic on this phase's own f32
+    forward of the same frames, both truncated to integer mm as the PNG
+    writer does."""
+    serve = make_serving_fn(model, upsample_to=FRAME_HW, preprocess=True,
+                            device=DEVICE)
+    forward = make_infer_fn(model, upsample_to=FRAME_HW, preprocess=True,
+                            device=DEVICE)
+    worst, off, total = 0, 0, 0
+    for batch in batch_iterator([p[0] for p in pairs], 8, pad_last=True):
+        frames = torch.from_numpy(batch["image"]).to(DEVICE)
+        mm = depth_maps_mm(serve, frames).astype(np.uint16).astype(np.int64)
+        out = forward(frames)[..., 0].cpu().numpy()
+        ref = (np.where(out > MAX_DEPTH_M, 0.0, out) * 1000.0).astype(
+            np.uint16).astype(np.int64)
+        if mm.shape != (8, *FRAME_HW):
+            raise RuntimeError(f"test_nyu maps of shape {mm.shape}")
+        diff = np.abs(mm - ref)
+        worst = max(worst, int(diff.max()))
+        off += int((diff > 0).sum())
+        total += diff.size
+    if worst > 1:
+        raise RuntimeError(f"test_nyu mm maps differ by {worst} mm")
+    log("9 eval", f"test_nyu compute (ENB0-HU, batch 8, {EVAL_PAIRS} "
+        f"frames): uint16 mm maps against the f32 forward's, max |diff| "
+        f"{worst} mm (<= 1), {off} of {total} pixels off by 1")
+    return dict(max_mm=worst, pixels_off=off)
+
+
+def phase_bench(pairs, card) -> dict:
+    """``inference_benchmark``'s per-checkpoint trials for both
+    checkpoints on the phase's frames, bf16 at batch 8; the memory must be
+    the card's live peak."""
+    frames = [p[0] for p in pairs]
+    rows = []
+    for path, _, _ in EVAL_CONFIGS.values():
+        for trial in range(BENCH_TRIALS):
+            rows.append(benchmark_row(frames, path, trial, 8, bf16=True,
+                                      device=DEVICE))
+            if rows[-1]["memory_source"] != "live":
+                raise RuntimeError(f"inference_benchmark memory source "
+                                   f"{rows[-1]['memory_source']}")
+    summary = {model: {f"{f}_{st}": entry[(f, st)]
+                       for f, st in SUMMARY_COLUMNS}
+               for model, entry in summarize(rows).items()}
+    for model, entry in summary.items():
+        log("9 eval", f"{card}: inference_benchmark --bf16 -b 8 -n "
+            f"{BENCH_TRIALS}, {EVAL_PAIRS} frames: {model} "
+            + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                       for k, v in entry.items()))
+    return summary
+
+
+def phase_eval(card) -> dict:
+    fx = np.load(EVAL_FIXTURE)
+    t0 = time.perf_counter()
+    pairs = eval_pairs(fx)
+    log("9 eval", f"{EVAL_PAIRS} test pairs of generate_dataset(seed=0) "
+        f"built in memory in {time.perf_counter() - t0:.1f} s (host); their "
+        "sums are the fixture's")
+    models = [phase_eval_model(name, pairs, fx, card) for name in EVAL_CONFIGS]
+    return dict(models=models, inference_benchmark=phase_bench(pairs, card))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1197,14 +1548,15 @@ def main() -> int:
     if (len(dw_sites), len(up_sites)) != (16, 4):
         raise RuntimeError(f"found {len(dw_sites)} depthwise and "
                            f"{len(up_sites)} direct upsample-conv sites")
-    errs = phase_kernels(model, dw_sites, up_sites)
+    errs = phase_kernels(model, dw_sites, up_sites)[torch.bfloat16]
     for name in NEW_SHAPE_CONFIGS:
         other = random_model(name)
         sites = main_path_sites(other)
         counts = (len(sites[0]), len(sites[1]))
         if counts != RANDOM_CONFIGS[name][3]:
             raise RuntimeError(f"found {counts} kernel sites in {name}")
-        for key, e in phase_kernels(other, *sites[:2], name).items():
+        for key, e in phase_kernels(other, *sites[:2],
+                                    name)[torch.bfloat16].items():
             errs[key] = max(errs[key], e)
         del other, sites
     errs.update(phase_loss_kernels())
@@ -1224,6 +1576,7 @@ def main() -> int:
         configs.append(phase_random(name, frames, card))
     for c in configs:
         c["card"] = card
+    evaluation = phase_eval(card)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -1251,6 +1604,7 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"eval": evaluation}))
     print(json.dumps({"configs": configs}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,7 @@ frame size. Entry points run on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import copy
+import os
 
 import torch
 from torch import nn
@@ -21,12 +22,15 @@ from efficientdepthestimation_tpu_torch.checkpoints.serialization import (
 from efficientdepthestimation_tpu_torch.data.transforms import (
     eval_preprocess_image_only,
 )
+from efficientdepthestimation_tpu_torch.models.registry import (
+    parse_checkpoint_name,
+)
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
 
-__all__ = ["resolve_device", "load_any_checkpoint", "make_infer_fn",
-           "make_serving_fn"]
+__all__ = ["resolve_device", "infer_arch_from_path", "load_any_checkpoint",
+           "make_infer_fn", "make_serving_fn"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,6 +41,30 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch versions on the CPU")
     return device
+
+
+def infer_arch_from_path(model_path: str) -> tuple[str, str]:
+    """(encoder, decoder) of a checkpoint path: the released-checkpoint
+    name ``{ENC}-{DEC}.pth`` (inference_benchmark.py:117-125), else the
+    substring sniffing of demo.py:25-31 (hu2018 unless 'lasinger' appears
+    or the name ends in '-lr')."""
+    try:
+        return parse_checkpoint_name(os.path.basename(model_path))
+    except ValueError:
+        pass
+    lower = os.path.splitext(os.path.basename(model_path))[0].lower()
+    decoder = ("lasinger2019" if ("lasinger" in lower or lower.endswith("-lr"))
+               else "hu2018")
+    for token, enc in (
+        ("efficientnet-b4", "efficientnet-b4"),
+        ("efficientnet-b0", "efficientnet-b0"),
+        ("efficientnet", "efficientnet-b4"),  # demo.py's default variant
+        ("resnet", "resnet50"), ("densenet", "densenet161"),
+        ("senet", "senet154"),
+    ):
+        if token in lower:
+            return enc, decoder
+    raise ValueError(f"Cannot infer architecture from '{model_path}'")
 
 
 def load_any_checkpoint(path: str, *, device=None) -> nn.Module:

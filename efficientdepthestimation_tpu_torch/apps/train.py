@@ -1,9 +1,10 @@
-"""One training epoch over a dataset, with metrics drained one step behind.
+"""One training epoch with metrics drained one step behind, and one eval
+epoch.
 
-Counterpart of ``run_train_epoch`` in
-``efficientdepthestimation_tpu/apps/train.py:487-556``. The training CLI
-(``main``: PNG/CSV datasets, run logging, the eval epoch, train-state
-checkpoints, ``--resume`` and SIGTERM) is ROADMAP A10's next part.
+Counterpart of ``run_train_epoch`` and ``run_eval_epoch`` in
+``efficientdepthestimation_tpu/apps/train.py:487-578``. The training CLI
+(``main``: run logging, train-state checkpoints, ``--resume`` and SIGTERM)
+is ROADMAP A10's next part; the mesh and sharding arguments are A11's.
 """
 
 from __future__ import annotations
@@ -15,11 +16,12 @@ import torch
 
 from efficientdepthestimation_tpu_torch.apps.common import resolve_device
 from efficientdepthestimation_tpu_torch.data.datasets import batch_iterator
+from efficientdepthestimation_tpu_torch.data.transforms import eval_preprocess
 from efficientdepthestimation_tpu_torch.training.metrics import (
     MetricsTracker,
 )
 
-__all__ = ["epoch_seed", "run_train_epoch"]
+__all__ = ["epoch_seed", "run_train_epoch", "run_eval_epoch"]
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -92,3 +94,30 @@ def run_train_epoch(state, train_step, dataset, batch_size: int, seed: int,
         drain(pending)
     print()
     return state, {"loss": loss_sum / max(loss_n, 1)}, False
+
+
+def run_eval_epoch(state, eval_step, dataset, batch_size: int,
+                   crop_hw: tuple[int, int] = (228, 304), *, device=None
+                   ) -> MetricsTracker:
+    """One pass of ``eval_step`` (``make_eval_step``) over a test split of
+    uint8 frames and 16-bit mm depths: ``eval_preprocess`` on ``device``
+    (the CUDA card unless ``device="cpu"``), the step, and the tracker fed
+    with each batch's sums. The last batch is padded (``pad_last``) and its
+    duplicates masked through ``num_valid``. Returns the tracker."""
+    device = resolve_device(device)
+    tracker = MetricsTracker()
+    seen = 0
+    epoch_start = datetime.datetime.now()
+    for batch in batch_iterator(dataset, batch_size, pad_last=True):
+        images, depths = eval_preprocess(
+            torch.from_numpy(batch["image"]).to(device),
+            torch.from_numpy(batch["depth"]).to(device), crop_hw=crop_hw)
+        sums, _ = eval_step(state, images, depths, int(batch["num_valid"]))
+        tracker.update_from_sums(sums)
+        seen += int(batch["num_valid"])
+        dt = (datetime.datetime.now() - epoch_start).total_seconds()
+        print(f"\rVal [{seen:05d}/{len(dataset):05d}] - "
+              f"({dt / max(seen, 1):.4f}s/image) - {tracker}", end="",
+              flush=True)
+    print()
+    return tracker

@@ -1,20 +1,31 @@
 """Procedural NYU-v2 stand-in with real depth structure, host numpy only.
 
-A copy of ``_smooth_noise`` and ``render_scene`` from
-``efficientdepthestimation_tpu/data/synthetic_nyu.py``: simple "rooms" (a
-floor/back-wall depth ramp plus box and ellipse furniture at nearer depths),
-RGB shaded from depth and textured, deterministic in the seed. The committed
+A copy of ``efficientdepthestimation_tpu/data/synthetic_nyu.py``: simple
+"rooms" (a floor/back-wall depth ramp plus box and ellipse furniture at
+nearer depths), RGB shaded from depth and textured, deterministic in the
+seed, and the PNG/CSV dataset writer. The committed
 ``e2e/ENB0-HU-synthetic.ede`` was trained on these scenes; the training
-tests and ``chip_smoke.py`` make their batches from them.
+tests and ``chip_smoke.py`` make their batches from them, and
+``chip_smoke.py`` evaluates on ``eval_pair`` scenes built in memory, the
+pairs ``generate_dataset`` writes. PIL is imported only where PNGs are
+written.
 """
 
 from __future__ import annotations
 
+import argparse
+import csv
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["render_scene", "train_pair", "synthetic_train_set"]
+__all__ = ["render_scene", "depth_png_units", "train_pair", "eval_pair",
+           "synthetic_train_set", "TEST_SEED_OFFSET", "generate_dataset",
+           "main"]
+
+# Test scenes use seeds seed + i + TEST_SEED_OFFSET, disjoint from training.
+TEST_SEED_OFFSET = 10_000_000
 
 
 def _smooth_noise(rng: np.random.Generator, hw: Tuple[int, int],
@@ -101,12 +112,30 @@ def render_scene(seed: int, hw: Tuple[int, int] = (480, 640),
     return (rgb * 255).astype(np.uint8), depth
 
 
+def depth_png_units(depth_m: np.ndarray, is_test: bool) -> np.ndarray:
+    """Depth in metres as its PNG stores it: 16-bit millimetres for the
+    test split (nyu_transform.py:173), 8-bit ×25.5 per metre for training
+    (nyu_transform.py:175)."""
+    if is_test:
+        return np.clip(depth_m * 1000.0, 0, 65535).astype(np.uint16)
+    return np.clip(depth_m * 25.5, 0, 255).astype(np.uint8)
+
+
 def train_pair(seed: int, hw: Tuple[int, int] = (480, 640)
                ) -> Tuple[np.ndarray, np.ndarray]:
-    """``(rgb uint8 HxWx3, depth uint8 HxW)`` with depth stored ×25.5 per
-    metre, the 8-bit train convention (reference nyu_transform.py:175)."""
+    """``(rgb uint8 HxWx3, depth uint8 HxW)``, the 8-bit train convention."""
     rgb, depth_m = render_scene(seed, hw)
-    return rgb, np.clip(depth_m * 25.5, 0, 255).astype(np.uint8)
+    return rgb, depth_png_units(depth_m, is_test=False)
+
+
+def eval_pair(seed: int, hw: Tuple[int, int] = (480, 640)
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(rgb uint8 HxWx3, depth uint16 HxW)``, 16-bit millimetres: test
+    pair ``i`` of ``generate_dataset(seed=s)`` is
+    ``eval_pair(s + i + TEST_SEED_OFFSET)``."""
+    rgb, depth_m = render_scene(seed, hw)
+    return rgb, depth_png_units(depth_m, is_test=True)
+
 
 
 def synthetic_train_set(seeds: Sequence[int],
@@ -115,3 +144,59 @@ def synthetic_train_set(seeds: Sequence[int],
     """An in-memory training set of ``train_pair`` scenes, one per seed,
     that ``data.datasets.batch_iterator`` batches."""
     return [train_pair(s, hw) for s in seeds]
+
+
+def _save_pair(img_dir, depth_dir, idx, rgb, depth_m, is_test):
+    from PIL import Image
+
+    img_path = os.path.join(img_dir, f"{idx:05d}.png")
+    depth_path = os.path.join(depth_dir, f"{idx:05d}.png")
+    Image.fromarray(rgb).save(img_path)
+    # uint16 arrays become 16-bit ("I;16") PNGs, uint8 8-bit ("L") ones.
+    Image.fromarray(depth_png_units(depth_m, is_test)).save(depth_path)
+    return img_path, depth_path
+
+
+def generate_dataset(out_dir: str, n_train: int = 2000, n_test: int = 200,
+                     hw: Tuple[int, int] = (480, 640), seed: int = 0,
+                     ) -> Tuple[str, str]:
+    """Write the dataset; returns ``(train_csv, test_csv)`` paths.
+
+    CSV rows are ``image_path,depth_path`` with no header, the format of
+    the reference's ``nyu2_train.csv`` (``loaddata.py:14-18``). Train and
+    test scenes use disjoint seed ranges.
+    """
+    paths = {}
+    for split, n, is_test in (("train", n_train, False),
+                              ("test", n_test, True)):
+        img_dir = os.path.join(out_dir, split, "images")
+        depth_dir = os.path.join(out_dir, split, "depths")
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(depth_dir, exist_ok=True)
+        csv_path = os.path.join(out_dir, f"{split}.csv")
+        with open(csv_path, "w", newline="") as f:
+            writer = csv.writer(f)
+            for i in range(n):
+                scene_seed = seed + i + (TEST_SEED_OFFSET if is_test else 0)
+                rgb, depth_m = render_scene(scene_seed, hw)
+                writer.writerow(_save_pair(img_dir, depth_dir, i, rgb,
+                                           depth_m, is_test))
+        paths[split] = csv_path
+    return paths["train"], paths["test"]
+
+
+def main(args=None):
+    parser = argparse.ArgumentParser(description="Generate synthetic NYU data")
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--train", type=int, default=2000)
+    parser.add_argument("--test", type=int, default=200)
+    parser.add_argument("--hw", type=int, nargs=2, default=(480, 640))
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(args)
+    train_csv, test_csv = generate_dataset(
+        args.out, args.train, args.test, tuple(args.hw), args.seed)
+    print(f"train: {train_csv}\ntest:  {test_csv}")
+
+
+if __name__ == "__main__":
+    main()

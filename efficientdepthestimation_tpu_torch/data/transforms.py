@@ -28,7 +28,8 @@ from efficientdepthestimation_tpu_torch.ops.resize import (
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "IMAGENET_PCA_EIGVAL",
            "IMAGENET_PCA_EIGVEC", "normalize_imagenet",
            "scale_short_side_size", "center_crop_box", "scale_short_side",
-           "center_crop", "eval_preprocess_image_only", "demo_preprocess",
+           "center_crop", "eval_preprocess", "eval_preprocess_image_only",
+           "demo_preprocess",
            "draw_augmentation", "train_preprocess"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -78,6 +79,28 @@ def center_crop(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
         return x
     y1, x1 = center_crop_box(h, w, th, tw)
     return x[:, y1:y1 + th, x1:x1 + tw, :]
+
+
+def eval_preprocess(images_u8: torch.Tensor, depths_u16: torch.Tensor,
+                    crop_hw: tuple[int, int] = (228, 304)
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Test-split preprocessing (reference loaddata.py:68-85), on the
+    images' device.
+
+    images_u8 (N, 480, 640, 3) uint8; depths_u16 (N, 480, 640[, 1]) 16-bit
+    millimetres (uint16, or any integer dtype that holds them). Returns
+    normalized f32 images (N, *crop_hw, 3) and f32 depths in metres
+    (N, *crop_hw, 1): PIL-NEAREST Scale(240), the same center crop, ÷1000
+    (nyu_transform.py:173) as XLA computes a division by a constant, a
+    product with its f32 reciprocal, so the depths are the JAX package's
+    bit for bit.
+    """
+    if depths_u16.dim() == 3:
+        depths_u16 = depths_u16[..., None]
+    depths = scale_short_side(depths_u16.float(), 240, "nearest", False)
+    depths = center_crop(depths, *crop_hw) * (1.0 / 1000.0)
+    return (eval_preprocess_image_only(images_u8, crop_hw),
+            depths.contiguous())
 
 
 def eval_preprocess_image_only(images_u8: torch.Tensor,

@@ -1,7 +1,8 @@
 """The training step: preprocess, forward, fused loss, backward, Adam, metrics.
 
 Counterpart of ``efficientdepthestimation_tpu/training/train_step.py``
-(``:33-96, 191-232``) for ``accum_steps == 1``. JAX compiles the step into
+(``:33-96, 191-232``) for ``accum_steps == 1``, and its eval step
+(``:352-368``). JAX compiles the step into
 one program; here it runs eagerly on the card, and it updates the model, its
 BatchNorm statistics and the optimizer in place rather than returning new
 arrays. The loss is always ``ops.kernels.fused_loss.fused_depth_loss``: its
@@ -31,12 +32,16 @@ from efficientdepthestimation_tpu_torch.data.transforms import (
 from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
     fused_depth_loss,
 )
+from efficientdepthestimation_tpu_torch.ops.resize import (
+    resize_bilinear_align_corners,
+)
 from efficientdepthestimation_tpu_torch.training.metrics import (
     depth_metrics_batch,
+    sums_to_host,
 )
 
 __all__ = ["TrainState", "step_lr", "create_train_state", "step_seeds",
-           "make_train_step"]
+           "make_train_step", "make_eval_step", "eval_sums"]
 
 
 def step_lr(base_lr: float, steps_per_epoch: int, step_size: int = 5,
@@ -148,3 +153,43 @@ def make_train_step(*, preprocess: bool = True, mixed_precision: bool = False,
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(*, upsample_to_label: bool = True, device=None):
+    """Build the eval step for ``device`` (the CUDA card unless
+    ``device="cpu"``): the forward in eval mode, the align-corners upsample
+    to the label size, the metric sums (reference train.py:259-292).
+
+    The returned ``eval_step(state, images, depths, num_valid=None)`` takes
+    a ``TrainState`` or a bare model, preprocessed images and depths (as
+    ``eval_preprocess`` returns them); ``num_valid`` masks ``pad_last``
+    duplicates out of the sums, so batched eval equals per-sample eval. It
+    returns ``(sums, out)``: the ``depth_metrics_batch`` sums as host
+    floats, read back in one copy, and the upsampled depth on the
+    device.
+    """
+    device = resolve_device(device)
+
+    @torch.inference_mode()
+    def eval_step(state, images, depths, num_valid=None):
+        model = state.model if isinstance(state, TrainState) else state
+        images = torch.as_tensor(images).to(device)
+        depths = torch.as_tensor(depths).to(device)
+        sums, out = eval_sums(model.eval(), images, depths, num_valid,
+                              upsample_to_label=upsample_to_label)
+        return sums_to_host(sums), out
+
+    return eval_step
+
+
+def eval_sums(model, images, depths, num_valid=None, *,
+              upsample_to_label: bool = True):
+    """The eval step's work on the tensors' device, for a model in eval
+    mode: the forward, the align-corners upsample to the label size, the
+    ``depth_metrics_batch`` sums. Returns ``(sums, out)`` with the sums
+    still on the device, so that a caller can add sums of its own before
+    the one copy back (``sums_to_host``)."""
+    out = model(images)
+    if upsample_to_label:
+        out = resize_bilinear_align_corners(out, depths.shape[1:3])
+    return depth_metrics_batch(out, depths, num_valid), out

@@ -650,3 +650,93 @@ def test_bf16_train_step_on_card():
     assert metrics["batch_size"].item() == 3.0
     assert model.R.conv2.weight.dtype == torch.float32
     assert not torch.equal(model.R.conv2.weight, before)
+
+
+# ---------------------------------------------------------- evaluation
+
+# ENB0-HU's 12 distinct depthwise shapes and 4 direct upsample-conv sites
+# (the first entries of DW_SITES and UP_SITES), at the evaluation's
+# batches: 1, the reference's, and 8, also ``inference_benchmark``'s (the
+# depthwise launch shape depends on B).
+ENB0_HU_DW_SITES, ENB0_HU_UP_SITES = DW_SITES[:12], UP_SITES[:4]
+EVAL_BATCHES = (1, 8)
+
+
+@pytest.mark.parametrize("batch", EVAL_BATCHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c,k,stride,pad", ENB0_HU_DW_SITES)
+def test_depthwise_matches_plain_at_eval_batch_sites(dtype, hw, c, k, stride,
+                                                     pad, batch):
+    _need_card()
+    _check_dw(_site_dw_args(dtype, hw, c, k, b=batch, seed=8), dtype, stride,
+              pad)
+
+
+@pytest.mark.parametrize("batch", EVAL_BATCHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_hw,out_hw,c,o", ENB0_HU_UP_SITES)
+def test_upsample_conv_matches_plain_at_eval_batch_sites(dtype, in_hw, out_hw,
+                                                         c, o, batch):
+    _need_card()
+    x, k = _site_up_args(dtype, in_hw, c, o, b=batch, seed=8)
+    y = upsample_conv(x, k, out_hw)
+    assert y.dtype == dtype and y.shape == (batch, *out_hw, o)
+    rtol, atol = UP_TOL[dtype]
+    torch.testing.assert_close(y.float(),
+                               upsample_conv_plain(x, k, out_hw).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_sums_are_deterministic_at_batch1(dtype):
+    """At B = 1 the launch shape splits a plane into channel tiles and row
+    bands: the sums still come out bit for bit from launch to launch."""
+    _need_card()
+    for hw, c, k, stride, pad in ENB0_HU_DW_SITES:
+        args = _site_dw_args(dtype, hw, c, k, b=1, seed=9)
+        first = depthwise_bn_swish(*args, stride=stride, padding=pad)
+        for _ in range(3):
+            y, s = depthwise_bn_swish(*args, stride=stride, padding=pad)
+            assert torch.equal(s, first[1]) and torch.equal(y, first[0])
+
+
+def test_eval_step_on_card_matches_cpu():
+    """``make_eval_step`` for ENB0-HU in f32 on a batch of 4 test pairs
+    whose last repeats the third (num_valid 3), on the card (its kernels,
+    cuDNN, TF32 off) against the same step on the CPU (the plain
+    versions): depth sums to 1e-4 relative, δ sums (scaled by the batch)
+    to 3 × 2e-3, as chip_smoke.py's EVAL_* tolerances; the output to
+    1e-3 m."""
+    from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+        TEST_SEED_OFFSET,
+        eval_pair,
+    )
+    from efficientdepthestimation_tpu_torch.data.transforms import (
+        eval_preprocess,
+    )
+    from efficientdepthestimation_tpu_torch.training.train_step import (
+        make_eval_step,
+    )
+
+    _need_card()
+    pairs = [eval_pair(TEST_SEED_OFFSET + i) for i in (0, 1, 2, 2)]
+    rgb = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    depth = torch.from_numpy(np.stack([p[1] for p in pairs]))
+    model = load_any_checkpoint(CHECKPOINT, device="cpu")
+    ref, ref_out = make_eval_step(device="cpu")(
+        model, *eval_preprocess(rgb, depth), 3)
+    dw, up = depthwise_bn_swish.launches, upsample_conv.launches
+    sums, out = make_eval_step()(model.cuda(),
+                                 *eval_preprocess(rgb.cuda(), depth.cuda()),
+                                 3)
+    assert (depthwise_bn_swish.launches - dw,
+            upsample_conv.launches - up) == (16, 4)
+    assert out.is_cuda and sums["batch_size"] == ref["batch_size"] == 3.0
+    for key, value in ref.items():
+        if key.startswith("delta"):
+            assert abs(sums[key] - value) <= 3 * 2e-3, key
+        else:
+            np.testing.assert_allclose(sums[key], value, rtol=1e-4,
+                                       err_msg=key)
+    np.testing.assert_allclose(out.cpu().numpy(), ref_out.numpy(), rtol=1e-3,
+                               atol=1e-3)

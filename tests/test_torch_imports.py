@@ -2,7 +2,9 @@
 
 Every module of ``efficientdepthestimation_tpu_torch`` and ``chip_smoke.py``
 is imported in a fresh interpreter, which must then hold no ``jax``, ``flax``
-or ``efficientdepthestimation_tpu`` module.
+or ``efficientdepthestimation_tpu`` module, and neither PIL nor pandas,
+which the card's machine lacks: a module that decodes or writes images
+imports PIL where it does so.
 """
 
 import os
@@ -37,7 +39,7 @@ def test_port_imports_no_jax():
             "import sys",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', "
-            "'efficientdepthestimation_tpu'))",
+            "'efficientdepthestimation_tpu', 'PIL', 'pandas'))",
             "assert not bad, bad",
             "print('clean', len(sys.modules))",
         ])
@@ -63,6 +65,41 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
         common.make_serving_fn(registry.build_model("resnet18",
                                                     "lasinger2019"))
     assert common.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_eval_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):
+    """The evaluation modules' entry points run on the card, and raise
+    without one, unless given ``device="cpu"`` or ``--device cpu``."""
+    from efficientdepthestimation_tpu_torch.apps import (
+        evaluate,
+        inference_benchmark,
+        test_nyu,
+        train,
+    )
+    from efficientdepthestimation_tpu_torch.training import train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = registry.build_model("efficientnet-b0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_step.make_eval_step()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run_eval_epoch(model, None, [], 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.evaluate_dataset(model, [], 1)
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    (tmp_path / "test.csv").write_text("")
+    for main, argv in (
+            (evaluate.main, ["--model", CHECKPOINT, "--test-csv",
+                             str(tmp_path / "test.csv")]),
+            (test_nyu.main, ["-c", os.path.dirname(CHECKPOINT),
+                             "--test-csv", str(tmp_path / "test.csv"),
+                             "-o", str(tmp_path / "out")]),
+            (inference_benchmark.main, ["-c", os.path.dirname(CHECKPOINT),
+                                        "-f", str(frames)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    train_step.make_eval_step(device="cpu")
 
 
 def test_pth_checkpoints_are_not_ported_yet(tmp_path):
