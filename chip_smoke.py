@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one card: ENB0-HU serving and training,
-serving of the other released configurations, and evaluation.
+serving of the other released configurations, evaluation, and reference
+``.pth`` checkpoints served and run through the apps.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -62,11 +63,25 @@ Phases, one output line each (more for the per-site detail):
      and 1 (f32, bf16); the batch-1 serving latency of each; ENB0-HU's
      kernels' f32 batch-1 times; ``test_nyu``'s compute at batch 8 against
      the f32 forward; and
-     ``inference_benchmark``'s trials of both checkpoints (bf16, batch 8).
+     ``inference_benchmark``'s trials of both checkpoints (bf16, batch 8);
+ 10. reference ``.pth`` checkpoints and the apps: each released
+     configuration written as the reference released it (HU: a raw
+     ``state_dict`` under ``module.``; LR: MidasNet's self-describing
+     dict), ENB0-HU and ENB0-LR from their ``.ede``, the others with phase
+     8's weights, loaded onto the card by ``load_any_checkpoint`` (load ms;
+     every tensor equal to its source), one bf16 serving call of phase 4's
+     frames each with exact launches, ENB0-HU's and ENB0-LR's bit for bit
+     the ``.ede`` models'; then from ENB0-HU's ``.pth`` the apps' array
+     paths: demo (batch 1, f32, against the CPU; latency), point_clouds (8
+     frames, the points against ``unproject_depth`` on the CPU; frames/s),
+     depth_video (16 frames at batch 8: the preprocess against the CPU, the
+     kernels at its 456×608 sites, exact launches, frames/s, peak memory)
+     and inference's ``peak_memory`` at batch 8.
 
-It prints a JSON line of the evaluation figures, a JSON line of
-per-configuration figures, a JSON line of per-kernel figures, then, as its
-last line, ``{"ok": true, "device": {...}}``. Any failure raises, so the
+It prints a JSON line of the evaluation figures, a JSON line of the
+``.pth`` and app figures, a JSON line of per-configuration figures, a JSON
+line of per-kernel figures, then, as its last line, ``{"ok": true,
+"device": {...}}``. Any failure raises, so the
 script exits non-zero without that line; so does a machine without a CUDA
 card.
 """
@@ -82,6 +97,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -89,10 +105,19 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from efficientdepthestimation_tpu_torch import MIDAS_CHECKPOINT_VERSION
 from efficientdepthestimation_tpu_torch.apps.common import (
     load_any_checkpoint,
     make_infer_fn,
     make_serving_fn,
+)
+from efficientdepthestimation_tpu_torch.apps.demo import depth_of
+from efficientdepthestimation_tpu_torch.apps.depth_video import (
+    CROP_HW as VIDEO_INPUT_HW,
+    HEIGHT as VIDEO_HEIGHT,
+    WIDTH as VIDEO_WIDTH,
+    depth_frames,
+    preprocess as video_preprocess,
 )
 from efficientdepthestimation_tpu_torch.apps.evaluate import (
     EDGE_KEYS,
@@ -107,7 +132,17 @@ from efficientdepthestimation_tpu_torch.apps.test_nyu import (
     MAX_DEPTH_M,
     depth_maps_mm,
 )
+from efficientdepthestimation_tpu_torch.apps.point_clouds import (
+    INPUT_HW as PC_INPUT_HW,
+    cloud_of,
+)
 from efficientdepthestimation_tpu_torch.checkpoints.convert import to_jax_leaf
+from efficientdepthestimation_tpu_torch.checkpoints.pth_import import (
+    reference_state_dict,
+)
+from efficientdepthestimation_tpu_torch.checkpoints.serialization import (
+    load_checkpoint,
+)
 from efficientdepthestimation_tpu_torch.data.datasets import batch_iterator
 from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
     TEST_SEED_OFFSET,
@@ -115,6 +150,7 @@ from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
     eval_pair,
 )
 from efficientdepthestimation_tpu_torch.data.transforms import (
+    demo_preprocess,
     draw_augmentation,
     eval_preprocess_image_only,
     train_preprocess,
@@ -125,6 +161,7 @@ from efficientdepthestimation_tpu_torch.models.hu2018 import (
     HuDepthModel,
     UpProjection,
 )
+from efficientdepthestimation_tpu_torch.models.midas import MidasNet
 from efficientdepthestimation_tpu_torch.models.registry import build_model
 from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
@@ -158,6 +195,11 @@ from efficientdepthestimation_tpu_torch.training.train_step import (
     make_train_step,
     step_seeds,
 )
+from efficientdepthestimation_tpu_torch.utils.pointcloud import (
+    NYU_V2_INTRINSICS_HALF,
+    unproject_depth,
+)
+from efficientdepthestimation_tpu_torch.utils.profiling import peak_memory
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-HU-synthetic.ede")
@@ -193,6 +235,16 @@ RANDOM_CONFIGS = {
 # (ENB4-LR's encoder is ENB4-HU's).
 NEW_SHAPE_CONFIGS = ("ENB4-HU", "RN50-HU")
 F32_CHECK_FRAMES = 8  # frames of phase 8's f32 reference forward
+# Phase 10 writes each released configuration as a reference .pth (the
+# two with an .ede from it, the others with phase 8's random weights) and
+# serves it; the apps run from ENB0-HU's: demo on one frame, point_clouds
+# on APP_FRAMES, depth_video on VIDEO_FRAMES at VIDEO_BATCH (the app's
+# default batch), inference's peak memory at VIDEO_BATCH.
+PTH_CONFIGS = {"ENB0-HU": ("efficientnet-b0", "hu2018", None, (16, 4)),
+               "ENB0-LR": ("efficientnet-b0", "lasinger2019", None, (16, 0)),
+               **RANDOM_CONFIGS}
+APP_FRAMES = 8
+VIDEO_FRAMES, VIDEO_BATCH = 16, 8
 BATCH = 128
 TRAIN_BATCH = 64
 TRAIN_FIXTURE_SEEDS = (0, 1)  # tests/make_torch_train_fixture.py
@@ -251,6 +303,21 @@ BF16_RANDOM_MAX_REL, BF16_RANDOM_MEAN_REL = 0.15, 0.03
 # compared at the same batch size only: the reference does not scale it by
 # the batch (util.py:68). Batch 1 against batch 8 on the card: the same.
 EVAL_DEPTH_RTOL, EVAL_COUNT_ATOL = 1e-4, 2e-3
+# Phase 10. Points: unproject_depth on the card against the CPU on the same
+# depth, f32 element-wise products and quotients whose divisor PyTorch's
+# CUDA kernel may apply as a product with its reciprocal (1 ulp, 6e-8):
+# 1e-6 relative. depth_video's preprocess: the card's resize sums in
+# another order than the CPU's, and a value within rounding of .5 rounds
+# to the other uint8 level, 1/255 of the range before the two divisions by
+# the std and 255, so at most 1/(255·0.224·255) = 6.9e-5; the port against
+# JAX on the CPU (16 frames, 480x640 and 300x500) differs by 2.8e-9 at
+# most, with no level flipped.
+POINT_RTOL = 1e-6
+PREPROCESS_ATOL = 7e-5
+# The preprocess is checked on the fixture's 480x640 frames, where its
+# Scale to 640x480 is the identity, and on the same frames resized on the
+# host to a 1080p video's 1080x1920 and to 300x500, which go through it.
+PREPROCESS_HWS = ((480, 640), (1080, 1920), (300, 500))
 # Loss kernel pair vs its plain versions, same inputs on the card.
 #   sums: per-image sums of 17,328 O(1) terms, added in another order
 #         (threads, warps, a cluster's blocks) than the plain reduction,
@@ -312,10 +379,12 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def main_path_sites(model) -> tuple[list[dict], list[dict], list[dict]]:
-    """The shapes the serving forward gives each kernel, read off one
-    forward at batch 1 on the card, with the module's own weights; and the
-    UpProjection sites that take the einsum form instead of the kernel."""
+def main_path_sites(model, input_hw: tuple[int, int] = INPUT_HW
+                    ) -> tuple[list[dict], list[dict], list[dict]]:
+    """The shapes a forward of ``input_hw`` images gives each kernel, read
+    off one forward at batch 1 on the card, with the module's own weights;
+    and the UpProjection sites that take the einsum form instead of the
+    kernel."""
     dw_sites, up_sites, einsum_sites = [], [], []
     names = {m: n for n, m in model.named_modules()}
 
@@ -340,7 +409,7 @@ def main_path_sites(model) -> tuple[list[dict], list[dict], list[dict]]:
     hooks += [m.register_forward_pre_hook(on_up) for m in model.modules()
               if isinstance(m, UpProjection)]
     with torch.inference_mode():
-        model(torch.zeros(1, *INPUT_HW, 3, device=DEVICE))
+        model(torch.zeros(1, *input_hw, 3, device=DEVICE))
     for h in hooks:
         h.remove()
     for s in up_sites + einsum_sites:
@@ -609,22 +678,31 @@ def phase_loss_kernels() -> dict:
     return errs
 
 
-def serve_counted(serve, frames, name: str, expected: tuple[int, int]
-                  ) -> tuple[torch.Tensor, dict]:
-    """One serving call with the serving kernels' counts set to 0 just
-    before it and read just after; the call must launch each kernel
-    exactly ``expected`` = (depthwise, upsample-conv) times and give finite
-    depth at frame size."""
+def counted(fn, expected: tuple[int, int], what: str) -> tuple:
+    """``fn()`` with the serving kernels' counts set to 0 just before it
+    and read just after: it must launch each kernel exactly ``expected`` =
+    (depthwise, upsample-conv) times. Returns its result and the
+    launches."""
     counters = {"depthwise_bn_swish": depthwise_bn_swish,
                 "upsample_conv": upsample_conv}
+    torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
-    out = serve(frames)
+    out = fn()
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    if tuple(launches.values()) != expected:
-        raise RuntimeError(f"{name} serving launches {launches}, expected "
+    if tuple(launches.values()) != tuple(expected):
+        raise RuntimeError(f"{what}: launches {launches}, expected "
                            f"{expected[0]} + {expected[1]}")
+    return out, launches
+
+
+def serve_counted(serve, frames, name: str, expected: tuple[int, int]
+                  ) -> tuple[torch.Tensor, dict]:
+    """One serving call, ``counted``: exactly ``expected`` launches, and
+    finite depth at frame size."""
+    out, launches = counted(lambda: serve(frames), expected,
+                            f"{name} serving")
     if tuple(out.shape) != (frames.shape[0], *FRAME_HW, 1):
         raise RuntimeError(f"{name} output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -1288,20 +1366,15 @@ def eval_counted(model, pairs, batch: int, per_forward: tuple[int, int]
     ``per_forward`` = (depthwise, upsample-conv). Returns the metrics, the
     launches and the host seconds (the loop reads each batch's sums back,
     so its end waits for the card)."""
-    counters = {"depthwise_bn_swish": depthwise_bn_swish,
-                "upsample_conv": upsample_conv}
-    torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    metrics = quiet_eval(model, pairs, batch)
-    dt = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    def timed():
+        t0 = time.perf_counter()
+        metrics = quiet_eval(model, pairs, batch)
+        return metrics, time.perf_counter() - t0
+
     forwards = math.ceil(len(pairs) / batch)
-    if tuple(launches.values()) != tuple(forwards * n for n in per_forward):
-        raise RuntimeError(f"evaluation at batch {batch}: launches "
-                           f"{launches} in {forwards} forwards, expected "
-                           f"{per_forward[0]} + {per_forward[1]} a forward")
+    (metrics, dt), launches = counted(
+        timed, tuple(forwards * n for n in per_forward),
+        f"evaluation at batch {batch} ({forwards} forwards)")
     return metrics, launches, dt
 
 
@@ -1533,6 +1606,250 @@ def phase_eval(card) -> dict:
     return dict(models=models, inference_benchmark=phase_bench(pairs, card))
 
 
+def reference_pth(model, path: str, encoder: str) -> None:
+    """Write ``model`` as the reference released its checkpoints: a Hu2018
+    model as a raw ``state_dict`` under DataParallel's ``module.`` prefix,
+    a MidasNet as its self-describing dict (lasinger2019.py:372-392, sizes
+    WH, schema version MIDAS_CHECKPOINT_VERSION)."""
+    weights = reference_state_dict(model)
+    if isinstance(model, MidasNet):
+        h_out, w_out = model.output_size
+        h_in, w_in = model.input_size or model.output_size
+        state = {"encoder": {"name": encoder, "freeze_weights": False},
+                 "decoder": {"num_features": model.decoder.feature_count,
+                             "non_negative": model.decoder.non_negative},
+                 "input_size": (w_in, h_in), "output_size": (w_out, h_out),
+                 "adversarial_training": False, "weights": weights,
+                 "version": MIDAS_CHECKPOINT_VERSION}
+    else:
+        state = {f"module.{k}": v for k, v in weights.items()}
+    torch.save(state, path)
+
+
+def timed_load(path: str) -> tuple[torch.nn.Module, float]:
+    """``load_any_checkpoint(path)`` onto the card, and its ms on the host
+    clock up to the model's weights being there."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load_any_checkpoint(path)
+    torch.cuda.synchronize()
+    return model, 1e3 * (time.perf_counter() - t0)
+
+
+def same_state(model, source, name: str) -> None:
+    """The loaded model holds the source's every tensor, bit for bit."""
+    ours, ref = model.state_dict(), source.state_dict()
+    if list(ours) != list(ref):
+        raise RuntimeError(f"{name}: the .pth model's keys differ")
+    for key, value in ref.items():
+        got = ours[key].cpu()
+        if got.dtype != value.dtype or not torch.equal(got, value):
+            raise RuntimeError(f"{name}: {key} differs from its source")
+
+
+LAYOUTS = {False: "raw state_dict, module. prefix",
+           True: "self-describing MidasNet"}
+
+
+def phase_pth(frames, card, tmp: str) -> tuple[dict, torch.nn.Module]:
+    """10 (a): each released configuration written as a reference ``.pth``
+    (ENB0-HU and ENB0-LR from their ``.ede``, the others with phase 8's
+    random weights) and loaded onto the card by ``load_any_checkpoint``
+    with its default device: the same tensors bit for bit, exact launches
+    in one bf16 serving call of phase 4's frames, and for the two ``.ede``
+    checkpoints the same output bit for bit as the ``.ede``-loaded model.
+    Returns the figures and ENB0-HU's ``.pth`` model."""
+    result, enb0_hu = {}, None
+    for name, (encoder, decoder, seed, expected) in PTH_CONFIGS.items():
+        if seed is None:
+            source, _ = load_checkpoint(EVAL_CONFIGS[name][0])
+        else:
+            source = randomize_(build_model(encoder, decoder), seed)
+        path = os.path.join(tmp, f"{name}.pth")
+        reference_pth(source, path, encoder)
+        model, load_ms = timed_load(path)
+        same_state(model, source, name)
+        del source
+        serve = make_serving_fn(model, upsample_to=FRAME_HW,
+                                dtype=torch.bfloat16, preprocess=True,
+                                device=DEVICE)
+        out, launches = serve_counted(serve, frames, f"{name} (.pth)",
+                                      expected)
+        entry = dict(name=name, pth_mb=os.path.getsize(path) / 2**20,
+                     pth_load_ms=load_ms, launches=launches)
+        msg = ""
+        if seed is None:
+            twin, entry["ede_load_ms"] = timed_load(EVAL_CONFIGS[name][0])
+            ref, _ = serve_counted(
+                make_serving_fn(twin, upsample_to=FRAME_HW,
+                                dtype=torch.bfloat16, preprocess=True,
+                                device=DEVICE),
+                frames, f"{name} (.ede)", expected)
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"{name}: the .pth model serves other "
+                                   f"depth than the .ede model (max "
+                                   f"{max_abs(out, ref):.3g} m)")
+            msg = (f"; .ede load {entry['ede_load_ms']:.1f} ms; bf16 serving "
+                   f"equal bit for bit to the .ede model's")
+            del twin, ref
+        log("10 pth", f"{card}: {name}.pth ({entry['pth_mb']:.1f} MiB, "
+            f"{LAYOUTS[isinstance(model, MidasNet)]}) "
+            f"loaded onto the card in {load_ms:.1f} ms (host clock), every "
+            f"tensor equal to its source; serving {frames.shape[0]} frames "
+            f"bf16: "
+            f"launches {launches}{msg}")
+        result[name] = entry
+        if name == "ENB0-HU":
+            enb0_hu = model
+        del model, serve, out
+    return result, enb0_hu
+
+
+def phase_apps(model, frames, card) -> dict:
+    """10 (b): the apps' array paths on the card from ENB0-HU's ``.pth``:
+    demo (batch 1, f32) against the same model on the CPU and its latency;
+    point_clouds on 8 frames, the points against ``unproject_depth`` on
+    the CPU; depth_video's preprocess against its CPU run, its kernels at
+    the shapes of its 456×608 input, exact launches, frames/s and peak
+    memory; inference's ``peak_memory`` at batch 8."""
+    rgb = frames[:APP_FRAMES].cpu().numpy()
+    result = {}
+
+    infer = make_infer_fn(model, device=DEVICE)
+    cpu_infer = make_infer_fn(model, device="cpu")
+    out, _ = counted(lambda: depth_of(infer, rgb[0], DEVICE), (16, 4),
+                     "demo")
+    ref = depth_of(cpu_infer, rgb[0], "cpu")
+    err = float(np.abs(out - ref).max())
+    np.testing.assert_allclose(out, ref, **F32_MODEL_TOL)
+    for _ in range(WARMUP):
+        depth_of(infer, rgb[0], DEVICE)
+    times = []
+    for _ in range(LATENCY_CALLS):
+        t0 = time.perf_counter()
+        depth_of(infer, rgb[0], DEVICE)  # ends in a copy to the host
+        times.append(1e3 * (time.perf_counter() - t0))
+    result["demo"] = dict(max_abs_m=err, median_ms=float(np.median(times)),
+                          min_ms=float(np.min(times)))
+    log("10 apps", f"{card}: demo (ENB0-HU .pth, f32, one 480x640 frame to "
+        f"its 114x152 depth on the host): vs the same model on the CPU max "
+        f"abs {err:.3g} m (rtol/atol {F32_MODEL_TOL['rtol']}/"
+        f"{F32_MODEL_TOL['atol']}); latency median {np.median(times):.2f} "
+        f"ms, min {np.min(times):.2f} ms over {LATENCY_CALLS} calls after "
+        f"{WARMUP} (host clock); launches 16 + 4")
+    del cpu_infer
+
+    pc_infer = make_infer_fn(model, upsample_to=PC_INPUT_HW, device=DEVICE)
+    intrinsics = {k: NYU_V2_INTRINSICS_HALF[k] for k in ("fx", "fy", "cx",
+                                                        "cy")}
+    worst, n_points = 0.0, 0
+    for frame in rgb:
+        points, colors = cloud_of(pc_infer, frame, DEVICE)
+        images = demo_preprocess(torch.tensor(frame[None], device=DEVICE))
+        depth = pc_infer(images)[0, :, :, 0].cpu()
+        ref_points, _ = unproject_depth(depth, **intrinsics)
+        ref_points = ref_points.numpy()
+        if points.shape != ref_points.shape or colors.shape != points.shape:
+            raise RuntimeError(f"point_clouds: {points.shape} points, "
+                               f"{ref_points.shape} on the CPU")
+        np.testing.assert_allclose(points, ref_points, rtol=POINT_RTOL,
+                                   atol=0)
+        worst = max(worst, float(np.max(np.abs(points - ref_points)
+                                        / np.maximum(np.abs(ref_points),
+                                                     1e-30))))
+        n_points += len(points)
+    cloud_of(pc_infer, rgb[0], DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for frame in rgb:
+        cloud_of(pc_infer, frame, DEVICE)
+    dt = time.perf_counter() - t0
+    result["point_clouds"] = dict(frames_per_s=len(rgb) / dt,
+                                  worst_rel=worst, points=n_points)
+    log("10 apps", f"{card}: point_clouds ({len(rgb)} frames, f32, "
+        f"forward + upsample to {PC_INPUT_HW} + unproject on the card + one "
+        f"copy back): {len(rgb) / dt:.1f} frames/s (host clock); {n_points} "
+        f"points, against unproject_depth on the CPU of the same depth: "
+        f"worst relative {worst:.3g} (<= {POINT_RTOL})")
+    del pc_infer
+
+    video = frames[:VIDEO_FRAMES]
+    pre_errs, pre_off = {}, {}
+    for hw in PREPROCESS_HWS:
+        clip = video[:VIDEO_BATCH].cpu()
+        if hw != tuple(clip.shape[1:3]):  # a video's size, made on the host
+            clip = F.interpolate(clip.permute(0, 3, 1, 2).float(), size=hw,
+                                 mode="bilinear", align_corners=False)
+            clip = clip.round().clamp(0, 255).to(torch.uint8).permute(
+                0, 2, 3, 1).contiguous()
+        diff = (video_preprocess(clip.to(DEVICE)).cpu()
+                - video_preprocess(clip)).abs()
+        key = f"{hw[0]}x{hw[1]}"
+        pre_errs[key], pre_off[key] = float(diff.max()), int((diff > 1e-8)
+                                                            .sum())
+        if not pre_errs[key] <= PREPROCESS_ATOL:
+            raise RuntimeError(f"depth_video preprocess on the card at {key}: "
+                               f"max {pre_errs[key]} from its CPU run")
+        del clip, diff
+    dw_sites, up_sites, _ = main_path_sites(model, VIDEO_INPUT_HW)
+    if (len(dw_sites), len(up_sites)) != (16, 4):
+        raise RuntimeError(f"depth_video: {len(dw_sites)} depthwise and "
+                           f"{len(up_sites)} upsample-conv sites")
+    checks = phase_kernels(model, dw_sites, up_sites, "ENB0-HU video",
+                           batch=VIDEO_BATCH, phase="10 apps")
+    v_infer = make_infer_fn(model, upsample_to=(VIDEO_HEIGHT, VIDEO_WIDTH),
+                            device=DEVICE)
+    batches = [video[i:i + VIDEO_BATCH]
+               for i in range(0, VIDEO_FRAMES, VIDEO_BATCH)]
+    counted(lambda: [depth_frames(v_infer, b) for b in batches],
+            (16 * len(batches), 4 * len(batches)), "depth_video")
+    depth_frames(v_infer, batches[0]).cpu()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in batches:
+        depth = depth_frames(v_infer, b).cpu().numpy()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if depth.shape != (VIDEO_BATCH, VIDEO_HEIGHT, VIDEO_WIDTH) or \
+            not np.isfinite(depth).all():
+        raise RuntimeError(f"depth_video depth of shape {depth.shape}")
+    result["depth_video"] = dict(
+        frames_per_s=VIDEO_FRAMES / dt, peak_gib=peak,
+        preprocess_max_abs=pre_errs, preprocess_off=pre_off,
+        kernel_checks={str(d).removeprefix("torch."): e
+                       for d, e in checks.items()})
+    log("10 apps", f"{card}: depth_video ({VIDEO_FRAMES} frames at batch "
+        f"{VIDEO_BATCH}, f32, preprocess to {VIDEO_INPUT_HW} + forward + "
+        f"upsample to {VIDEO_HEIGHT}x{VIDEO_WIDTH} + copy back): "
+        f"{VIDEO_FRAMES / dt:.1f} frames/s (host clock), peak memory "
+        f"{peak:.3f} GiB; launches 16 + 4 a batch; preprocess vs its CPU "
+        f"run (frames of {', '.join(pre_errs)}) max abs "
+        f"{', '.join(f'{e:.3g}' for e in pre_errs.values())} (<= "
+        f"{PREPROCESS_ATOL}), values off by more than 1e-8: "
+        f"{', '.join(map(str, pre_off.values()))}")
+    del v_infer, depth
+
+    images = eval_preprocess_image_only(frames[:VIDEO_BATCH])
+    peak, source = peak_memory(infer, (images,))
+    if source != "live" or peak <= 0:
+        raise RuntimeError(f"inference peak memory {peak} ({source})")
+    result["inference"] = dict(peak_bytes=peak, source=source)
+    log("10 apps", f"{card}: inference (peak_memory, ENB0-HU .pth f32 "
+        f"forward at batch {VIDEO_BATCH}): {peak / 2**30:.3f} GiB ({source})")
+    return result
+
+
+def phase_pth_apps(frames, card) -> dict:
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        loads, model = phase_pth(frames, card, tmp)
+    apps = phase_apps(model, frames, card)
+    seconds = time.perf_counter() - t0
+    log("10 apps", f"ok: phase 10 in {seconds:.1f} s")
+    return dict(card=card, seconds=seconds, pth=loads, apps=apps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1577,6 +1894,7 @@ def main() -> int:
     for c in configs:
         c["card"] = card
     evaluation = phase_eval(card)
+    apps = phase_pth_apps(frames, card)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -1605,6 +1923,7 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
     print(json.dumps({"eval": evaluation}))
+    print(json.dumps({"apps": apps}))
     print(json.dumps({"configs": configs}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Checkpoint loading and the serving forward of the port.
 
-Counterpart of ``efficientdepthestimation_tpu/apps/common.py``. This slice
-ports the monolithic path: uint8 frames → PIL-parity preprocess → model in
+Counterpart of ``efficientdepthestimation_tpu/apps/common.py``: checkpoints
+of both kinds, ``.ede`` and the reference's ``.pth``, and the monolithic
+serving path: uint8 frames → PIL-parity preprocess → model in
 the serving dtype → f32 depth, optionally upsampled (align corners) to the
 frame size. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
@@ -15,6 +16,9 @@ import os
 import torch
 from torch import nn
 
+from efficientdepthestimation_tpu_torch.checkpoints.pth_import import (
+    import_pth,
+)
 from efficientdepthestimation_tpu_torch.checkpoints.serialization import (
     MAGIC,
     load_checkpoint,
@@ -67,18 +71,23 @@ def infer_arch_from_path(model_path: str) -> tuple[str, str]:
     raise ValueError(f"Cannot infer architecture from '{model_path}'")
 
 
-def load_any_checkpoint(path: str, *, device=None) -> nn.Module:
-    """The model of a native ``.ede`` checkpoint, a Hu2018 state or a
-    self-describing MidasNet, on ``device``, eval."""
+def load_any_checkpoint(path: str, model: nn.Module | None = None, *,
+                        device=None) -> nn.Module:
+    """The model of a checkpoint on ``device``, eval: a native ``.ede``
+    (its ``EDE1`` magic) or a reference ``.pth``, a Hu2018 ``state_dict``
+    or a self-describing MidasNet (``checkpoints.pth_import.import_pth``).
+    ``model``, when given, receives the weights in place of the model the
+    file or its name describes."""
     device = resolve_device(device)
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic != MAGIC:
-        raise NotImplementedError(
-            "only native .ede checkpoints are ported; .pth import is "
-            "ROADMAP item A8")
-    model, _ = load_checkpoint(path)
-    return model.to(device)
+        return import_pth(path, model=model).to(device)
+    loaded, _ = load_checkpoint(path)
+    if model is not None:
+        model.load_state_dict(loaded.state_dict(), strict=True)
+        loaded = model
+    return loaded.to(device).eval()
 
 
 def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,

@@ -26,7 +26,8 @@ from efficientdepthestimation_tpu_torch.checkpoints.convert import (
 )
 from efficientdepthestimation_tpu_torch.models.registry import build_model
 
-__all__ = ["read_ede", "load_checkpoint", "load_midas", "MAGIC"]
+__all__ = ["read_ede", "load_checkpoint", "load_midas", "check_midas_version",
+           "midas_model", "MAGIC"]
 
 MAGIC = b"EDE1"
 _EXT_NDARRAY = 1
@@ -51,13 +52,19 @@ def read_ede(path: str) -> tuple[dict, dict]:
     return header, tree
 
 
-def _midas_model(header: dict) -> nn.Module:
-    """The MidasNet a self-describing header describes, sizes WH → HW."""
-    w_in, h_in = header.get("input_size") or header["output_size"]
-    w_out, h_out = header["output_size"]
+def check_midas_version(header: dict) -> None:
+    """Warn when a self-describing MidasNet's schema version is not the
+    reference's (lasinger2019.py:396-400)."""
     if header.get("version") != MIDAS_CHECKPOINT_VERSION:
         warnings.warn(f"Version mismatch: checkpoint {header.get('version')} "
                       f"vs {MIDAS_CHECKPOINT_VERSION}.")
+
+
+def midas_model(header: dict) -> nn.Module:
+    """The MidasNet a self-describing header (an ``.ede`` header, or the
+    reference's ``.pth`` dict) describes, sizes WH → HW."""
+    w_in, h_in = header.get("input_size") or header["output_size"]
+    w_out, h_out = header["output_size"]
     decoder = header["decoder"]
     return build_model(header["encoder"]["name"], "lasinger2019",
                        output_size=(h_out, w_out), input_size=(h_in, w_in),
@@ -70,7 +77,8 @@ def load_checkpoint(path: str) -> tuple[nn.Module, dict]:
     header, tree = read_ede(path)
     fmt = header.get("format")
     if fmt == "midas-self-describing":
-        model = _midas_model(header)
+        check_midas_version(header)
+        model = midas_model(header)
     elif fmt == "hu2018-state":
         model = build_model(header["encoder"], header.get("decoder", "hu2018"))
     else:

@@ -189,6 +189,7 @@ class EfficientNetFeatures(nn.Module):
         super().__init__()
         res = EFFICIENTNET_PARAMS[variant][2]
         stem_out, plan = _block_plan(variant)
+        self.variant = variant
         self.drop_connect_rate = drop_connect_rate
         self._conv_stem = Conv(3, stem_out, 3, 2,
                                same_padding_static((res, res), (3, 3), (2, 2)))

@@ -2,9 +2,10 @@
 package's, on one PNG/CSV workspace on the CPU.
 
 The workspace is ``tests/test_apps.py``'s: a resnet18-HU with the JAX
-package's random init, written by its ``save_checkpoint`` and read by the
-port, here with 3 distinct 480×640 pairs (uint8 RGB, 16-bit mm depth) so
-that batch 2 pads its tail, and a directory of 3 frames. Each CLI runs in
+package's random init, written by its ``save_checkpoint`` (and, for
+``evaluate``, as a reference ``.pth``) and read by the port, here with 3
+distinct 480×640 pairs (uint8 RGB, 16-bit mm depth) so that batch 2 pads
+its tail, and a directory of 3 frames. Each CLI runs in
 both packages, the port's with ``--device cpu``.
 """
 
@@ -197,6 +198,33 @@ def test_evaluate_cli_matches_jax(workspace):
     lines = printed.getvalue().splitlines()
     assert [ln.split()[0] for ln in lines[-4:]] == ["AV", "PV", "RV", "FV"]
     assert "Progress: [03/03]" in printed.getvalue()
+
+
+def test_evaluate_cli_on_pth_matches_jax(workspace, tmp_path):
+    """``apps.evaluate`` of the workspace's model as a reference ``.pth``
+    (a raw ``state_dict`` under ``module.``, written by the JAX package's
+    ``state_dict_from_variables``) in both packages, at batch 2."""
+    from efficientdepthestimation_tpu.apps import evaluate as jevaluate
+    from efficientdepthestimation_tpu.checkpoints.pth_import import (
+        state_dict_from_variables,
+    )
+    from efficientdepthestimation_tpu.checkpoints.serialization import (
+        load_checkpoint,
+    )
+    from efficientdepthestimation_tpu_torch.apps import evaluate
+
+    jmodel, variables, _ = load_checkpoint(workspace["ckpt"])
+    sd = state_dict_from_variables(jmodel, jax.tree_util.tree_map(
+        np.asarray, variables))
+    pth = str(tmp_path / "RN18-HU.pth")
+    torch.save({f"module.{k}": torch.from_numpy(np.array(v))
+                for k, v in sd.items()}, pth)
+    argv = ["--model", pth, "--test-csv", workspace["csv"], "--batch-size",
+            str(BATCH)]
+    ref_tracker, ref_edges = _quiet(jevaluate.main, argv)
+    tracker, edges = _quiet(evaluate.main, argv + ["--device", "cpu"])
+    _assert_metrics_close(tracker.to_dict(), ref_tracker.to_dict())
+    _assert_metrics_close(edges, ref_edges)
 
 
 def test_test_nyu_cli_matches_jax(workspace, tmp_path):

@@ -740,3 +740,66 @@ def test_eval_step_on_card_matches_cpu():
                                        err_msg=key)
     np.testing.assert_allclose(out.cpu().numpy(), ref_out.numpy(), rtol=1e-3,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("checkpoint,launches", [(CHECKPOINT, (16, 4)),
+                                                 (LR_CHECKPOINT, (16, 0))])
+def test_pth_serves_as_its_ede_twin(checkpoint, launches, tmp_path):
+    """ENB0-HU and ENB0-LR written as reference ``.pth`` files (a raw
+    ``state_dict`` under ``module.``; the self-describing MidasNet dict,
+    whose schema the ``.ede`` header shares) load onto the card with the
+    default device and serve 4 frames in bf16 bit for bit as the
+    ``.ede``-loaded model does, with the same launches."""
+    from efficientdepthestimation_tpu_torch.checkpoints.pth_import import (
+        reference_state_dict,
+    )
+    from efficientdepthestimation_tpu_torch.checkpoints.serialization import (
+        load_checkpoint,
+    )
+
+    _need_card()
+    source, header = load_checkpoint(checkpoint)
+    weights = reference_state_dict(source)
+    if header["format"] == "midas-self-describing":
+        state = {k: v for k, v in header.items() if k != "format"}
+        state["weights"], name = weights, "ENB0-LR.pth"
+    else:
+        state = {f"module.{k}": v for k, v in weights.items()}
+        name = "ENB0-HU.pth"
+    torch.save(state, tmp_path / name)
+    frames = torch.from_numpy(fixture_frames()).cuda()
+    outs = []
+    for path in (checkpoint, str(tmp_path / name)):
+        serve = make_serving_fn(load_any_checkpoint(path),
+                                upsample_to=(480, 640), dtype=torch.bfloat16,
+                                preprocess=True)
+        dw, up = depthwise_bn_swish.launches, upsample_conv.launches
+        outs.append(serve(frames))
+        assert (depthwise_bn_swish.launches - dw,
+                upsample_conv.launches - up) == launches
+    assert outs[0].is_cuda and torch.equal(outs[0], outs[1])
+
+
+def test_unproject_depth_on_card_matches_cpu():
+    """f32 points on the card against the CPU, 1e-6 relative (a quotient
+    by a scalar may be a product with its reciprocal there, 1 ulp), with
+    zero depths dropped in both; the colours moved unchanged."""
+    from efficientdepthestimation_tpu_torch.utils.pointcloud import (
+        NYU_V2_INTRINSICS_HALF,
+        unproject_depth,
+    )
+
+    _need_card()
+    gen = torch.Generator().manual_seed(0)
+    depth = torch.rand(228, 304, generator=gen) * 9 + 0.5
+    depth[::7, ::5] = 0
+    colors = torch.rand(228, 304, 3, generator=gen, dtype=torch.float64)
+    k = {n: NYU_V2_INTRINSICS_HALF[n] for n in ("fx", "fy", "cx", "cy")}
+    for mirror_z in (False, True):
+        ref = unproject_depth(depth, colors, mirror_z=mirror_z, **k)
+        out = unproject_depth(depth.cuda(), colors.cuda(), mirror_z=mirror_z,
+                              **k)
+        assert out[0].is_cuda and out[0].shape == ref[0].shape
+        assert ref[0].shape[0] == 228 * 304 - 33 * 61
+        torch.testing.assert_close(out[0].cpu(), ref[0], rtol=1e-6, atol=0)
+        assert torch.equal(out[1].cpu(), ref[1])

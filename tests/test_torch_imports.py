@@ -2,9 +2,9 @@
 
 Every module of ``efficientdepthestimation_tpu_torch`` and ``chip_smoke.py``
 is imported in a fresh interpreter, which must then hold no ``jax``, ``flax``
-or ``efficientdepthestimation_tpu`` module, and neither PIL nor pandas,
-which the card's machine lacks: a module that decodes or writes images
-imports PIL where it does so.
+or ``efficientdepthestimation_tpu`` module, and none of PIL, pandas,
+matplotlib and cv2, which the card's machine lacks: a module that decodes
+or writes images or video imports them where it does so.
 """
 
 import os
@@ -39,7 +39,8 @@ def test_port_imports_no_jax():
             "import sys",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', "
-            "'efficientdepthestimation_tpu', 'PIL', 'pandas'))",
+            "'efficientdepthestimation_tpu', 'PIL', 'pandas', 'matplotlib', "
+            "'cv2'))",
             "assert not bad, bad",
             "print('clean', len(sys.modules))",
         ])
@@ -102,11 +103,48 @@ def test_eval_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):
     train_step.make_eval_step(device="cpu")
 
 
-def test_pth_checkpoints_are_not_ported_yet(tmp_path):
-    path = tmp_path / "ENB0-HU.pth"
-    path.write_bytes(b"PK\x03\x04 not an ede file")
-    with pytest.raises(NotImplementedError, match="A8"):
-        common.load_any_checkpoint(str(path), device="cpu")
+def test_media_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):
+    """demo, point_clouds, depth_video, examples and inference, from an
+    ``.ede`` and from a ``.pth``, raise without a card unless given
+    ``--device cpu``, which then runs them (on no frames); and a ``.pth``
+    loads on the card by default."""
+    from efficientdepthestimation_tpu_torch.apps import (
+        demo,
+        depth_video,
+        examples,
+        inference,
+        point_clouds,
+    )
+    from efficientdepthestimation_tpu_torch.checkpoints.pth_import import (
+        reference_state_dict,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pth = tmp_path / "RN18-HU.pth"
+    torch.save(reference_state_dict(registry.build_model("resnet18")), pth)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.load_any_checkpoint(str(pth))
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    for model in (CHECKPOINT, str(pth)):
+        for main, argv in (
+                (demo.main, ["-i", str(frames), "-m", model]),
+                (point_clouds.main, ["-i", str(frames), "-m", model, "-o",
+                                     str(tmp_path / "plys")]),
+                (depth_video.main, ["-i", str(frames), "-m", model, "-o",
+                                    str(tmp_path / "video")]),
+                (examples.main, ["-c", os.path.dirname(model), "--test-csv",
+                                 str(tmp_path / "test.csv")]),
+                (inference.main, ["--model", model, "--test-csv",
+                                  str(tmp_path / "test.csv")])):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(argv)
+    (tmp_path / "test.csv").write_text("")
+    demo.main(["-i", str(frames), "-m", str(pth), "--device", "cpu"])
+    point_clouds.main(["-i", str(frames), "-m", str(pth), "-o",
+                       str(tmp_path / "plys"), "--device", "cpu"])
+    depth_video.main(["-i", str(frames), "-m", str(pth), "-o",
+                      str(tmp_path / "video"), "--device", "cpu"])
 
 
 @pytest.mark.parametrize("encoder,decoder", [
