@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one card: ENB0-HU serving and training,
-serving of the other released configurations, evaluation, and reference
-``.pth`` checkpoints served and run through the apps.
+the route of each Hu2018 decoder site timed both ways, serving of the other
+released configurations and of DN161-HU and SN154-HU, evaluation, and
+reference ``.pth`` checkpoints served and run through the apps.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -15,15 +16,22 @@ Phases, one output line each (more for the per-site detail):
      must be the counts ``LOSS_*_PER_PX`` hold;
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at every shape the
-     ENB0-HU serving path gives it, and at the shapes only ENB4-HU (32
-     depthwise and 4 upsample-conv sites) and RN50-HU (D.up4, K larger
-     than shared memory) give it, at batch 128, in bf16 and f32 (the
-     depthwise SE sums bitwise equal across launches), and the loss kernel
-     pair at the training shape (64, 114, 152);
+     ENB0-HU serving path gives it, and at the shapes ENB4-HU (32
+     depthwise sites), RN50-HU, DN161-HU and SN154-HU give it (every
+     Hu2018 decoder site of these four, whichever route ``should_fuse``
+     gives it), at batch 128, in bf16 and f32 (the depthwise SE sums
+     bitwise equal across launches), and the loss kernel pair at the
+     training shape (64, 114, 152); then, at every Hu2018 decoder site of
+     ENB0-HU, ENB4-HU, RN50-HU, DN161-HU and SN154-HU, both routes of the
+     UpProjection (the kernel and the einsum rewrite) by CUDA-graph
+     replay beside the composition, bf16 at batch 128 (ENB0-HU's also
+     f32 at batch 8 and 1, bf16 at batch 8, f32 at the video's 456×608,
+     and forward plus backward in bf16 at the training batch), and which
+     is faster against the route ``should_fuse`` takes;
   4. load ``e2e/ENB0-HU-synthetic.ede``, check the f32 forward against the
      JAX reference fixture, then serve 128 uint8 480×640 frames in bf16
      through ``make_serving_fn`` and check shape, finiteness, kernel
-     launches (16 depthwise + 4 upsample-conv per forward) and agreement
+     launches (16 depthwise + 5 upsample-conv per forward) and agreement
      with the fixture;
   5. time steady-state frames/s, the card's kernel busy time and idle
      share in a serving call (``torch.profiler``), the stages of the
@@ -31,11 +39,11 @@ Phases, one output line each (more for the per-site detail):
      its plain version per site (the kernel as CUDA events over a loop of
      eager calls, and as a CUDA-graph replay, its device time alone; its
      GB/s or TFLOP/s and the share of its bound; beside the upsample-conv
-     kernel, cuDNN's interpolate + conv as a yardstick, and the kernel at
-     the four einsum-form sites beside that form), and peak device memory;
+     kernel, cuDNN's interpolate + conv as a yardstick), and peak device
+     memory;
   6. train: one f32 step against the JAX training fixture; bf16 steps at
      batch 64 through ``make_train_step`` (launches of one step: 1 loss
-     forward, 1 loss backward, 4 upsample-conv, 0 depthwise; a finite loss
+     forward, 1 loss backward, 5 upsample-conv, 0 depthwise; a finite loss
      that falls over 10 steps on a fixed batch; weights and BN statistics
      move); then images/s, the device ms of the step's phases, the launch
      floor (an empty kernel by CUDA-graph replay) and each loss kernel
@@ -46,50 +54,55 @@ Phases, one output line each (more for the per-site detail):
      (shape, finiteness, 16 depthwise + 0 upsample-conv launches,
      agreement with the fixture), then as phase 5: frames/s, busy time and
      idle share, the stages, peak memory;
-  8. ENB4-HU, ENB4-LR, RN50-HU and RN50-LR at full width and depth with
-     seeded random weights (``models.common.randomize_``): bf16 serving of
-     the same frames with each one's exact launches, its bf16 output
-     against its f32 forward on the card, frames/s, busy time and idle
-     share, the stages, peak memory, and the kernels' times at the shapes
-     ENB4-HU and RN50-HU give them;
+  8. ENB4-HU, ENB4-LR, RN50-HU, RN50-LR, DN161-HU and SN154-HU at full
+     width and depth with seeded random weights
+     (``models.common.randomize_``): bf16 serving of the same frames with
+     each one's exact launches, its bf16 output against its f32 forward on
+     the card, frames/s, busy time and idle share, the stages, peak
+     memory, and the kernels' times at the shapes the Hu2018 ones give
+     them;
   9. evaluation: ENB0-HU and ENB0-LR from their ``.ede`` in f32 over the
      first 60 test pairs of ``generate_dataset(seed=0)``, built in memory,
      through ``apps.evaluate.evaluate_dataset`` at batch 8 and 1, each
      against the JAX evaluation fixture (depth metrics, δ, edge
-     averages), with exact launches a forward (16 + 4, 16 + 0), batch 1
+     averages), with exact launches a forward (16 + 2, 16 + 0), batch 1
      against batch 8, eval images/s, busy time, idle share and peak memory
      (and the stretch of the batch-1 pass where the peak arises); each
-     model's kernels against their plain versions at its sites at batch 8
-     and 1 (f32, bf16); the batch-1 serving latency of each; ENB0-HU's
-     kernels' f32 batch-1 times; ``test_nyu``'s compute at batch 8 against
-     the f32 forward; and
-     ``inference_benchmark``'s trials of both checkpoints (bf16, batch 8);
- 10. reference ``.pth`` checkpoints and the apps: each released
-     configuration written as the reference released it (HU: a raw
-     ``state_dict`` under ``module.``; LR: MidasNet's self-describing
-     dict), ENB0-HU and ENB0-LR from their ``.ede``, the others with phase
-     8's weights, loaded onto the card by ``load_any_checkpoint`` (load ms;
-     every tensor equal to its source), one bf16 serving call of phase 4's
-     frames each with exact launches, ENB0-HU's and ENB0-LR's bit for bit
-     the ``.ede`` models'; then from ENB0-HU's ``.pth`` the apps' array
+     model's kernels against their plain versions at batch 8 and 1, f32 at
+     the f32 route's sites and bf16 at the bf16 route's; the batch-1
+     serving latency of each; ENB0-HU's kernels' f32 batch-1 times;
+     ``test_nyu``'s compute at batch 8 against the f32 forward; and
+     ``inference_benchmark``'s trials of both checkpoints (bf16, batch 8;
+     the first of each with exact launches);
+ 10. reference ``.pth`` checkpoints and the apps: each configuration of
+     phases 4-8 written as the reference released it (HU: a raw
+     ``state_dict`` under ``module.``, SN154-HU's SE keys in the released
+     ``se_`` form; LR: MidasNet's self-describing dict), ENB0-HU and
+     ENB0-LR from their ``.ede``, the others with phase 8's weights,
+     loaded onto the card by ``load_any_checkpoint`` (load ms; every
+     tensor equal to its source), one bf16 serving call of phase 4's
+     frames each with exact launches, bit for bit as its source served
+     (ENB0-HU's and ENB0-LR's as loaded from their ``.ede``); then from
+     ENB0-HU's ``.pth`` the apps' array
      paths: demo (batch 1, f32, against the CPU; latency), point_clouds (8
      frames, the points against ``unproject_depth`` on the CPU; frames/s),
      depth_video (16 frames at batch 8: the preprocess against the CPU, the
      kernels at its 456×608 sites, exact launches, frames/s, peak memory)
      and inference's ``peak_memory`` at batch 8.
 
-It prints a JSON line of the evaluation figures, a JSON line of the
-``.pth`` and app figures, a JSON line of per-configuration figures, a JSON
-line of per-kernel figures, then, as its last line, ``{"ok": true,
-"device": {...}}``. Any failure raises, so the
-script exits non-zero without that line; so does a machine without a CUDA
-card.
+It prints a JSON line of the routes' times, a JSON line of the evaluation
+figures, a JSON line of the ``.pth`` and app figures, a JSON line of
+per-configuration figures, the card's name and power limit, a JSON line
+of per-kernel figures, then, as its last line, ``{"ok": true, "device":
+{...}}``. Any failure raises, so the script exits non-zero without that
+line; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import math
@@ -163,6 +176,7 @@ from efficientdepthestimation_tpu_torch.models.hu2018 import (
 )
 from efficientdepthestimation_tpu_torch.models.midas import MidasNet
 from efficientdepthestimation_tpu_torch.models.registry import build_model
+from efficientdepthestimation_tpu_torch.models.senet import SENetFeatures
 from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
     upsample_conv_pair,
@@ -209,11 +223,16 @@ TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
 LR_CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-LR-synthetic.ede")
 LR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_enb0_lr.npz")
 EVAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_eval_enb0.npz")
+# Launches of one ENB0-HU forward (depthwise, upsample-conv) under
+# should_fuse's routes: in bf16 (serving, training) the kernel takes D.up2-4
+# and MFF.up1-2, in f32 (evaluation, the apps, also at the video's 456×608)
+# D.up4 and MFF.up1.
+ENB0_HU_LAUNCHES, ENB0_HU_F32_LAUNCHES = (16, 5), (16, 2)
 # Phase 9 evaluates each checkpoint (fixture prefix, launches of one
 # forward: depthwise, upsample-conv) on the first EVAL_PAIRS test pairs of
 # generate_dataset(seed=0) at each of EVAL_BATCHES, in f32, as
 # tests/make_torch_eval_fixture.py does in the JAX package.
-EVAL_CONFIGS = {"ENB0-HU": (CHECKPOINT, "hu", (16, 4)),
+EVAL_CONFIGS = {"ENB0-HU": (CHECKPOINT, "hu", ENB0_HU_F32_LAUNCHES),
                 "ENB0-LR": (LR_CHECKPOINT, "lr", (16, 0))}
 EVAL_PAIRS, EVAL_BATCHES = 60, (8, 1)
 EVAL_SUM_KEYS = ("mae", "mse", "abs_rel", "log10", "delta1", "delta2",
@@ -226,21 +245,24 @@ BENCH_TRIALS = 2
 # The configurations phase 8 serves with random weights: (encoder, decoder,
 # randomize_ seed, launches of one forward: depthwise, upsample-conv).
 RANDOM_CONFIGS = {
-    "ENB4-HU": ("efficientnet-b4", "hu2018", 4, (32, 4)),
+    "ENB4-HU": ("efficientnet-b4", "hu2018", 4, (32, 5)),
     "ENB4-LR": ("efficientnet-b4", "lasinger2019", 5, (32, 0)),
     "RN50-HU": ("resnet50", "hu2018", 6, (0, 1)),
     "RN50-LR": ("resnet50", "lasinger2019", 7, (0, 0)),
+    "DN161-HU": ("densenet161", "hu2018", 8, (0, 0)),
+    "SN154-HU": ("senet154", "hu2018", 9, (0, 1)),
 }
 # The configurations that give the kernels shapes ENB0-HU does not
 # (ENB4-LR's encoder is ENB4-HU's).
-NEW_SHAPE_CONFIGS = ("ENB4-HU", "RN50-HU")
+NEW_SHAPE_CONFIGS = ("ENB4-HU", "RN50-HU", "DN161-HU", "SN154-HU")
 F32_CHECK_FRAMES = 8  # frames of phase 8's f32 reference forward
 # Phase 10 writes each released configuration as a reference .pth (the
 # two with an .ede from it, the others with phase 8's random weights) and
 # serves it; the apps run from ENB0-HU's: demo on one frame, point_clouds
 # on APP_FRAMES, depth_video on VIDEO_FRAMES at VIDEO_BATCH (the app's
 # default batch), inference's peak memory at VIDEO_BATCH.
-PTH_CONFIGS = {"ENB0-HU": ("efficientnet-b0", "hu2018", None, (16, 4)),
+PTH_CONFIGS = {"ENB0-HU": ("efficientnet-b0", "hu2018", None,
+                           ENB0_HU_LAUNCHES),
                "ENB0-LR": ("efficientnet-b0", "lasinger2019", None, (16, 0)),
                **RANDOM_CONFIGS}
 APP_FRAMES = 8
@@ -255,6 +277,9 @@ FRAME_HW = (480, 640)
 INPUT_HW = (228, 304)
 DEVICE = "cuda"
 WARMUP, ITERS = 3, 10
+# CUDA-graph replay of each route at each Hu2018 decoder site: calls
+# captured in the graph, and replays timed.
+ROUTE_ITERS, ROUTE_REPLAYS = 5, 2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory and the rate of
 # each kernel's arithmetic. The depthwise kernel's multiply-adds are f32 on
@@ -379,12 +404,13 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def main_path_sites(model, input_hw: tuple[int, int] = INPUT_HW
+def main_path_sites(model, input_hw: tuple[int, int] = INPUT_HW,
+                    dtype=torch.bfloat16
                     ) -> tuple[list[dict], list[dict], list[dict]]:
     """The shapes a forward of ``input_hw`` images gives each kernel, read
     off one forward at batch 1 on the card, with the module's own weights;
-    and the UpProjection sites that take the einsum form instead of the
-    kernel."""
+    and the UpProjection sites where ``should_fuse`` takes the einsum route
+    instead of the kernel in a ``dtype`` forward."""
     dw_sites, up_sites, einsum_sites = [], [], []
     names = {m: n for n, m in model.named_modules()}
 
@@ -399,7 +425,7 @@ def main_path_sites(model, input_hw: tuple[int, int] = INPUT_HW
     def on_up(module, args):
         x, size = args
         fused = should_fuse(tuple(x.shape[1:3]), tuple(size), x.shape[-1],
-                            module.features)
+                            module.features, dtype)
         (einsum_sites if fused else up_sites).append(dict(
             module=module, hw=tuple(x.shape[1:3]), c=x.shape[-1],
             size=tuple(size), o=2 * module.features))
@@ -562,15 +588,16 @@ def phase_card() -> str:
 
 
 def phase_kernels(model, dw_sites, up_sites, label: str = "ENB0-HU",
-                  batch: int = BATCH, phase: str = "3 kernels") -> dict:
+                  batch: int = BATCH, phase: str = "3 kernels",
+                  dtypes=(torch.float32, torch.bfloat16)) -> dict:
     """Each kernel against its plain version at every site of ``model`` at
-    ``batch``, in f32 and bf16; returns each dtype's worst error a kernel,
-    ``{dtype: {"depthwise": e, "upsample_conv": e}}``."""
+    ``batch``, in each of ``dtypes``; returns each dtype's worst error a
+    kernel, ``{dtype: {"depthwise": e, "upsample_conv": e}}``."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     errs = {dtype: {"depthwise": 0.0, "upsample_conv": 0.0}
-            for dtype in (torch.float32, torch.bfloat16)}
+            for dtype in dtypes}
     with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             tol = TOL[("depthwise", dtype)]
             for s in dw_sites:
                 args = dw_inputs(s, dtype, gen, batch)
@@ -602,9 +629,10 @@ def phase_kernels(model, dw_sites, up_sites, label: str = "ENB0-HU",
                     f"{dtype} x=({batch},{s['hw'][0]},{s['hw'][1]},"
                     f"{s['c']}) -> {s['size']}x{s['o']}: "
                     f"max|y-plain|={e:.3g}")
+    names = " and ".join(str(d).removeprefix("torch.") for d in dtypes)
     log(phase, f"ok: {label}'s {len(dw_sites)} depthwise and "
                f"{len(up_sites)} upsample_conv sites at batch {batch} agree "
-               "with the plain versions in f32 and bf16, depthwise sums "
+               f"with the plain versions in {names}, depthwise sums "
                f"bitwise equal across launches; (rtol, atol): {TOL}")
     return errs
 
@@ -731,7 +759,8 @@ def phase_serve(model) -> tuple:
     serve = make_serving_fn(model, upsample_to=FRAME_HW,
                             dtype=torch.bfloat16, preprocess=True,
                             device=DEVICE)
-    out, launches = serve_counted(serve, frames, "ENB0-HU", (16, 4))
+    out, launches = serve_counted(serve, frames, "ENB0-HU",
+                                  ENB0_HU_LAUNCHES)
     ref_up = resize_bilinear_align_corners(ref[..., None], FRAME_HW)
     err = (out[:4] - ref_up).abs()
     e_max, e_mean = err.max().item(), err.mean().item()
@@ -747,11 +776,16 @@ def phase_serve(model) -> tuple:
 
 def composition(x: torch.Tensor, k: torch.Tensor, size) -> torch.Tensor:
     """The upsample-conv as two cuDNN-era PyTorch calls, channels-last: a
-    yardstick for the kernel's time only (the port never calls it)."""
+    yardstick for the kernel's time only (the port never calls it). The
+    batch goes through in slices whose upsampled tensor stays below 2^31
+    elements, the most ``F.interpolate`` takes."""
     xc = x.permute(0, 3, 1, 2)  # NHWC memory, channels-last NCHW view
-    up = F.interpolate(xc, size=size, mode="bilinear", align_corners=True)
     w = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    return F.conv2d(up, w, padding=2)
+    step = max(1, (2**31 - 1) // (x.shape[-1] * size[0] * size[1]))
+    ys = [F.conv2d(F.interpolate(xc[i:i + step], size=size, mode="bilinear",
+                                 align_corners=True), w, padding=2)
+          for i in range(0, x.shape[0], step)]
+    return ys[0] if len(ys) == 1 else torch.cat(ys)
 
 
 def serving_rate(serve, frames, card, phase: str, label: str) -> dict:
@@ -763,19 +797,22 @@ def serving_rate(serve, frames, card, phase: str, label: str) -> dict:
         serve(frames)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     for _ in range(ITERS):
         serve(frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rate = dict(frames_per_s=BATCH * ITERS / dt, ms_per_batch=1e3 * dt / ITERS,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                held_gib=held)
     with torch.inference_mode():
         busy, records, top = kernel_busy(lambda: serve(frames))
     rate.update(busy_ms=busy, idle_share=1 - busy / rate["ms_per_batch"])
     log(phase, f"{card}: {label} serving {BATCH}x{FRAME_HW} bf16: "
         f"{rate['frames_per_s']:.1f} frames/s ({rate['ms_per_batch']:.2f} ms "
-        f"per batch, host clock), peak memory {rate['peak_gib']:.2f} GiB; "
+        f"per batch, host clock), peak memory {rate['peak_gib']:.2f} GiB "
+        f"({held:.2f} GiB held before the calls); "
         f"kernels busy {busy:.2f} ms per batch (torch.profiler, "
         f"{records:.0f} kernel and copy records a call): device idle share "
         f"{rate['idle_share']:.3f}; most device ms per batch: "
@@ -904,34 +941,138 @@ def time_sites(model, card, dw_sites, up_sites, phase: str,
     return res
 
 
-def phase_time(model, serve, frames, card, dw_sites, up_sites,
-               einsum_sites) -> tuple[dict, dict]:
+def phase_time(model, serve, frames, card, dw_sites, up_sites
+               ) -> tuple[dict, dict]:
     rate = serving_rate(serve, frames, card, "5 time", "ENB0-HU")
     rate["stage_ms"] = stage_times(model, frames, card, "5 time", "ENB0-HU")
     res = time_sites(model, card, dw_sites, up_sites, "5 time", "ENB0-HU")
-    gen = torch.Generator(device=DEVICE).manual_seed(2)
-    with torch.inference_mode():
-        # ROADMAP A15: the kernel where should_fuse picks the einsum form.
-        for s in einsum_sites:
-            x, k = up_inputs(s, model, torch.bfloat16, gen)
-            f = s["o"] // 2
-            k1, k2 = k[..., :f].contiguous(), k[..., f:].contiguous()
-            ms = graph_ms(lambda: upsample_conv(x, k, s["size"]))
-            einsum = graph_ms(lambda: upsample_conv_pair(x, k1, k2,
-                                                         s["size"]))
-            _, to = up_bound(s)
-            log("5 time", f"{card}: einsum site {s['name']} ({BATCH},"
-                f"{s['hw'][0]},{s['hw'][1]},{s['c']}) -> {s['size']}x"
-                f"{s['o']}: upsample_conv kernel {ms:.4f} ms "
-                f"({to * BF16_OPS_PER_S / ms / 1e12:.1f} TFLOP/s), einsum "
-                f"form (the model's route) {einsum:.4f} ms (both CUDA-graph "
-                "replay)")
     log("5 time", f"{card}: cuDNN grouped conv alone over the depthwise "
         f"sites (partial yardstick): {res['depthwise']['grouped_ms']:.3f} ms")
     log("5 time", f"{card}: F.interpolate + cuDNN conv2d over the "
         f"upsample_conv sites (yardstick): composition_ms "
         f"{res['upsample_conv']['composition_ms']:.3f}")
     return res, rate
+
+
+def route_calls(s: dict, model, dtype, gen, batch: int, backward: bool
+                ) -> dict:
+    """The three ways to compute site ``s``'s UpProjection branches at
+    ``batch``: the hand-written kernel (both branches in one launch), the
+    einsum rewrite (``upsample_conv_pair``) and the composition, each a
+    call of no arguments. With ``backward`` each call is a forward and its
+    backward to the input and the kernels, as a training step runs them
+    (the kernel route's gradient is its VJP, the others' autograd's)."""
+    f = s["o"] // 2
+    x, k = up_inputs(s, model, dtype, gen, batch)
+    x, k = x.detach(), k.detach()
+    k1, k2 = k[..., :f].contiguous(), k[..., f:].contiguous()
+    calls = {"kernel": lambda: upsample_conv(x, k, s["size"]),
+             "einsum": lambda: upsample_conv_pair(x, k1, k2, s["size"]),
+             "composition": lambda: composition(x, k, s["size"])}
+    if not backward:
+        return calls
+    for t in (x, k, k1, k2):
+        t.requires_grad_()
+    g = torch.randn(batch, *s["size"], 2 * f, generator=gen,
+                    device=DEVICE).to(dtype)
+    g1, g2 = g[..., :f].contiguous(), g[..., f:].contiguous()
+    return {"kernel": lambda: torch.autograd.grad(
+                calls["kernel"](), (x, k), g),
+            "einsum": lambda: torch.autograd.grad(
+                calls["einsum"](), (x, k1, k2), (g1, g2)),
+            "composition": lambda: torch.autograd.grad(
+                calls["composition"](), (x, k), g.permute(0, 3, 1, 2))}
+
+
+def route_times(name: str, model, card, dtype=torch.bfloat16,
+                batch: int = BATCH, seen: set | None = None,
+                input_hw: tuple[int, int] = INPUT_HW,
+                backward: bool = False) -> list[dict]:
+    """At every Hu2018 decoder site of ``model`` (D.up1-4, MFF.up1-4) for
+    ``input_hw`` images, both routes of its UpProjection on the same
+    inputs, ``dtype`` at ``batch``, by CUDA-graph replay: the hand-written
+    kernel and the einsum rewrite, beside the composition ``F.interpolate``
+    + cuDNN ``conv2d`` (a yardstick, never a route); the faster route, and
+    the route ``should_fuse`` gives the site. With ``backward``, each
+    route's forward and backward (``route_calls``) by CUDA events over a
+    loop of eager calls, as the training step runs. A site whose shape is
+    in ``seen`` (another configuration's) is not timed again."""
+    _, kernel_sites, einsum_sites = main_path_sites(model, input_hw, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    timing = "eager forward+backward" if backward else "CUDA-graph replay"
+    rows = []
+    with torch.inference_mode(not backward):
+        for s in sorted(kernel_sites + einsum_sites, key=lambda s: s["name"]):
+            f = s["o"] // 2
+            key = (s["hw"], s["size"], s["c"], f, str(dtype))
+            if seen is not None:
+                if key in seen:
+                    continue
+                seen.add(key)
+            calls = route_calls(s, model, dtype, gen, batch, backward)
+            times = {r: (cuda_ms(fn, ROUTE_ITERS) if backward
+                         else graph_ms(fn, ROUTE_ITERS, ROUTE_REPLAYS))
+                     for r, fn in calls.items()}
+            faster = min(("kernel", "einsum"), key=times.get)
+            chosen = "einsum" if s in einsum_sites else "kernel"
+            rows.append(dict(config=name, site=s["name"], in_hw=s["hw"],
+                             out_hw=s["size"], cin=s["c"], features=f,
+                             dtype=str(dtype).removeprefix("torch."),
+                             batch=batch, timing=timing, faster=faster,
+                             route=chosen,
+                             **{f"{r}_ms": t for r, t in times.items()}))
+            log("3 routes", f"{card}: {name} {s['name']} {dtype} x=({batch},"
+                f"{s['hw'][0]},{s['hw'][1]},{s['c']}) -> {s['size']}x{2 * f}"
+                f": kernel {times['kernel']:.4f} ms, einsum "
+                f"{times['einsum']:.4f} ms, composition (yardstick) "
+                f"{times['composition']:.4f} ms ({timing}); faster: "
+                f"{faster}; should_fuse's route: {chosen}")
+            del calls
+    return rows
+
+
+def phase_other_sites(model, card) -> tuple[dict, list[dict]]:
+    """3: each kernel against its plain version at the sites of the
+    NEW_SHAPE_CONFIGS models (with random weights): their depthwise sites
+    and every Hu2018 decoder site, whichever route ``should_fuse`` gives
+    it; then ``route_times`` at every Hu2018 decoder site of ENB0-HU
+    (``model``) and of those models, bf16 at BATCH, the serving shape,
+    each shape once; and ENB0-HU's at the shapes of its other paths: f32
+    at batch 8 and 1 (evaluation, demo), bf16 at batch 8
+    (``inference_benchmark``), f32 at the video's input at its batch, and
+    the training step's bf16 forward and backward at TRAIN_BATCH. Returns
+    each kernel's worst bf16 error and the route rows; the models are
+    freed on return."""
+    errs = {"depthwise": 0.0, "upsample_conv": 0.0}
+    models = {"ENB0-HU": model}
+    for name in NEW_SHAPE_CONFIGS:
+        models[name] = other = random_model(name)
+        dw, kernel, einsum = main_path_sites(other)
+        counts = (len(dw), len(kernel))
+        if counts != RANDOM_CONFIGS[name][3]:
+            raise RuntimeError(f"found {counts} kernel sites in {name}")
+        for key, e in phase_kernels(other, dw, kernel + einsum,
+                                    name)[torch.bfloat16].items():
+            errs[key] = max(errs[key], e)
+    seen, groups = set(), {}
+    groups["bf16 batch 128"] = [
+        r for name, other in models.items()
+        for r in route_times(name, other, card, seen=seen)]
+    for label, kw in (
+            ("f32 batch 8", dict(dtype=torch.float32, batch=8)),
+            ("f32 batch 1", dict(dtype=torch.float32, batch=1)),
+            ("bf16 batch 8", dict(batch=8)),
+            (f"f32 video {VIDEO_INPUT_HW} batch {VIDEO_BATCH}",
+             dict(dtype=torch.float32, batch=VIDEO_BATCH,
+                  input_hw=VIDEO_INPUT_HW)),
+            (f"bf16 training batch {TRAIN_BATCH}",
+             dict(batch=TRAIN_BATCH, backward=True))):
+        groups[label] = route_times("ENB0-HU", model, card, **kw)
+    for label, rows in groups.items():
+        agree = sum(r["faster"] == r["route"] for r in rows)
+        log("3 routes", f"{card}: {label}: should_fuse's route was the "
+            f"faster one at {agree} of {len(rows)} sites")
+    return errs, [r for rows in groups.values() for r in rows]
 
 
 def phase_lr(frames, card) -> dict:
@@ -1108,7 +1249,8 @@ def phase_train_steps() -> tuple:
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
     expected = {"fused_depth_loss": 1, "fused_depth_loss_bwd": 1,
-                "upsample_conv": 4, "depthwise_bn_swish": 0}
+                "upsample_conv": ENB0_HU_LAUNCHES[1],
+                "depthwise_bn_swish": 0}
     if launches != expected:
         raise RuntimeError(f"training step launches {launches}, expected "
                            f"{expected}")
@@ -1184,12 +1326,20 @@ def _self_device_us(event) -> float:
     return getattr(event, "self_device_time_total", 0.0)
 
 
+@functools.lru_cache(maxsize=None)
+def side_stream() -> torch.cuda.Stream:
+    """The one stream ``graph_ms`` warms its calls up on: PyTorch keeps a
+    cuBLAS workspace for each stream a matmul ran on, for the process's
+    life, so a new stream a call would hold more memory each time."""
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     """Device ms of one ``fn()`` call replayed from a CUDA graph of
     ``iters`` calls: every device operation the call launches, its
     kernels and any fill or memset its wrapper adds beside them, without the
     host's launch cost, which a loop of eager calls would time instead."""
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -1452,19 +1602,26 @@ def peak_by_stage(model, fn) -> list[tuple[str, float]]:
 def phase_eval_model(name: str, pairs, fx, card) -> dict:
     """9: one checkpoint evaluated in f32 at each of EVAL_BATCHES against
     the JAX fixture, its kernels held against their plain versions at the
-    sites of each of those batches, batch 1 against batch 8, where its
-    batch-1 peak memory arises, then its batch-1 serving latency."""
+    sites of each of those batches (f32 at the f32 route's sites, bf16,
+    which ``inference_benchmark`` serves, at the bf16 route's), batch 1
+    against batch 8, where its batch-1 peak memory arises, then its
+    batch-1 serving latency."""
     path, prefix, per_forward = EVAL_CONFIGS[name]
     model = load_any_checkpoint(path, device=DEVICE)
-    dw_sites, up_sites, _ = main_path_sites(model)
-    if (len(dw_sites), len(up_sites)) != per_forward:
-        raise RuntimeError(f"{name}: found {len(dw_sites)} depthwise and "
-                           f"{len(up_sites)} upsample-conv sites")
+    dw_sites, up_sites, _ = main_path_sites(model, dtype=torch.float32)
+    _, up_bf16, _ = main_path_sites(model)
+    for sites, want in ((up_sites, per_forward),
+                        (up_bf16, PTH_CONFIGS[name][3])):
+        if (len(dw_sites), len(sites)) != want:
+            raise RuntimeError(f"{name}: found {len(dw_sites)} depthwise "
+                               f"and {len(sites)} upsample-conv sites")
     result = dict(name=name, card=card, kernel_checks={})
     got = {}
     for b in EVAL_BATCHES:
         errs = phase_kernels(model, dw_sites, up_sites, name, batch=b,
-                             phase="9 eval")
+                             phase="9 eval", dtypes=(torch.float32,))
+        errs |= phase_kernels(model, dw_sites, up_bf16, name, batch=b,
+                              phase="9 eval", dtypes=(torch.bfloat16,))
         result["kernel_checks"][f"batch{b}"] = {
             str(dtype).removeprefix("torch."): e for dtype, e in errs.items()}
         quiet_eval(model, pairs[:b], b)  # one-time costs out of the timing
@@ -1574,13 +1731,26 @@ def phase_test_nyu(model, pairs) -> dict:
 def phase_bench(pairs, card) -> dict:
     """``inference_benchmark``'s per-checkpoint trials for both
     checkpoints on the phase's frames, bf16 at batch 8; the memory must be
-    the card's live peak."""
+    the card's live peak. The first trial of each is ``counted``: its
+    first call, its forwards over the frames and its peak-memory call each
+    launch a bf16 forward's kernels."""
     frames = [p[0] for p in pairs]
+    forwards = 2 + math.ceil(len(frames) / 8)
     rows = []
-    for path, _, _ in EVAL_CONFIGS.values():
+    for name, (path, _, _) in EVAL_CONFIGS.items():
         for trial in range(BENCH_TRIALS):
-            rows.append(benchmark_row(frames, path, trial, 8, bf16=True,
-                                      device=DEVICE))
+            def row():
+                return benchmark_row(frames, path, trial, 8, bf16=True,
+                                     device=DEVICE)
+            if trial:
+                rows.append(row())
+                continue
+            out, launches = counted(
+                row, tuple(forwards * n for n in PTH_CONFIGS[name][3]),
+                f"inference_benchmark {name} ({forwards} forwards)")
+            rows.append(out)
+            log("9 eval", f"inference_benchmark {name} trial 0: launches "
+                f"{launches} in {forwards} bf16 forwards at batch 8")
             if rows[-1]["memory_source"] != "live":
                 raise RuntimeError(f"inference_benchmark memory source "
                                    f"{rows[-1]['memory_source']}")
@@ -1610,7 +1780,8 @@ def reference_pth(model, path: str, encoder: str) -> None:
     """Write ``model`` as the reference released its checkpoints: a Hu2018
     model as a raw ``state_dict`` under DataParallel's ``module.`` prefix,
     a MidasNet as its self-describing dict (lasinger2019.py:372-392, sizes
-    WH, schema version MIDAS_CHECKPOINT_VERSION)."""
+    WH, schema version MIDAS_CHECKPOINT_VERSION). A SENet's SE keys take
+    the released checkpoints' ``se_fc1`` form (reside_model.py:42-43)."""
     weights = reference_state_dict(model)
     if isinstance(model, MidasNet):
         h_out, w_out = model.output_size
@@ -1622,7 +1793,9 @@ def reference_pth(model, path: str, encoder: str) -> None:
                  "adversarial_training": False, "weights": weights,
                  "version": MIDAS_CHECKPOINT_VERSION}
     else:
-        state = {f"module.{k}": v for k, v in weights.items()}
+        senet = isinstance(model.E, SENetFeatures)
+        state = {f"module.{k}".replace("se_module.", "se_") if senet
+                 else f"module.{k}": v for k, v in weights.items()}
     torch.save(state, path)
 
 
@@ -1652,13 +1825,14 @@ LAYOUTS = {False: "raw state_dict, module. prefix",
 
 
 def phase_pth(frames, card, tmp: str) -> tuple[dict, torch.nn.Module]:
-    """10 (a): each released configuration written as a reference ``.pth``
-    (ENB0-HU and ENB0-LR from their ``.ede``, the others with phase 8's
-    random weights) and loaded onto the card by ``load_any_checkpoint``
-    with its default device: the same tensors bit for bit, exact launches
-    in one bf16 serving call of phase 4's frames, and for the two ``.ede``
-    checkpoints the same output bit for bit as the ``.ede``-loaded model.
-    Returns the figures and ENB0-HU's ``.pth`` model."""
+    """10 (a): each configuration written as a reference ``.pth`` (ENB0-HU
+    and ENB0-LR from their ``.ede``, the others with phase 8's random
+    weights) and loaded onto the card by ``load_any_checkpoint`` with its
+    default device: the same tensors bit for bit, exact launches in one
+    bf16 serving call of phase 4's frames, and the same output bit for bit
+    as its source served from memory (for the two ``.ede`` checkpoints, as
+    loaded from the ``.ede``). Returns the figures and ENB0-HU's ``.pth``
+    model."""
     result, enb0_hu = {}, None
     for name, (encoder, decoder, seed, expected) in PTH_CONFIGS.items():
         if seed is None:
@@ -1669,7 +1843,6 @@ def phase_pth(frames, card, tmp: str) -> tuple[dict, torch.nn.Module]:
         reference_pth(source, path, encoder)
         model, load_ms = timed_load(path)
         same_state(model, source, name)
-        del source
         serve = make_serving_fn(model, upsample_to=FRAME_HW,
                                 dtype=torch.bfloat16, preprocess=True,
                                 device=DEVICE)
@@ -1677,31 +1850,28 @@ def phase_pth(frames, card, tmp: str) -> tuple[dict, torch.nn.Module]:
                                       expected)
         entry = dict(name=name, pth_mb=os.path.getsize(path) / 2**20,
                      pth_load_ms=load_ms, launches=launches)
-        msg = ""
         if seed is None:
             twin, entry["ede_load_ms"] = timed_load(EVAL_CONFIGS[name][0])
-            ref, _ = serve_counted(
-                make_serving_fn(twin, upsample_to=FRAME_HW,
-                                dtype=torch.bfloat16, preprocess=True,
-                                device=DEVICE),
-                frames, f"{name} (.ede)", expected)
-            if not torch.equal(out, ref):
-                raise RuntimeError(f"{name}: the .pth model serves other "
-                                   f"depth than the .ede model (max "
-                                   f"{max_abs(out, ref):.3g} m)")
-            msg = (f"; .ede load {entry['ede_load_ms']:.1f} ms; bf16 serving "
-                   f"equal bit for bit to the .ede model's")
-            del twin, ref
+            what = f".ede load {entry['ede_load_ms']:.1f} ms; the .ede model"
+        else:
+            twin, what = source.to(DEVICE), "its source in memory"
+        del source
+        ref, _ = serve_counted(
+            make_serving_fn(twin, upsample_to=FRAME_HW, dtype=torch.bfloat16,
+                            preprocess=True, device=DEVICE),
+            frames, f"{name} (source)", expected)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"{name}: the .pth model serves other depth "
+                               f"than {what} (max {max_abs(out, ref):.3g})")
         log("10 pth", f"{card}: {name}.pth ({entry['pth_mb']:.1f} MiB, "
             f"{LAYOUTS[isinstance(model, MidasNet)]}) "
             f"loaded onto the card in {load_ms:.1f} ms (host clock), every "
             f"tensor equal to its source; serving {frames.shape[0]} frames "
-            f"bf16: "
-            f"launches {launches}{msg}")
+            f"bf16: launches {launches}, equal bit for bit to {what}")
         result[name] = entry
         if name == "ENB0-HU":
             enb0_hu = model
-        del model, serve, out
+        del model, serve, out, twin, ref
     return result, enb0_hu
 
 
@@ -1717,8 +1887,8 @@ def phase_apps(model, frames, card) -> dict:
 
     infer = make_infer_fn(model, device=DEVICE)
     cpu_infer = make_infer_fn(model, device="cpu")
-    out, _ = counted(lambda: depth_of(infer, rgb[0], DEVICE), (16, 4),
-                     "demo")
+    out, _ = counted(lambda: depth_of(infer, rgb[0], DEVICE),
+                     ENB0_HU_F32_LAUNCHES, "demo")
     ref = depth_of(cpu_infer, rgb[0], "cpu")
     err = float(np.abs(out - ref).max())
     np.testing.assert_allclose(out, ref, **F32_MODEL_TOL)
@@ -1736,7 +1906,7 @@ def phase_apps(model, frames, card) -> dict:
         f"abs {err:.3g} m (rtol/atol {F32_MODEL_TOL['rtol']}/"
         f"{F32_MODEL_TOL['atol']}); latency median {np.median(times):.2f} "
         f"ms, min {np.min(times):.2f} ms over {LATENCY_CALLS} calls after "
-        f"{WARMUP} (host clock); launches 16 + 4")
+        f"{WARMUP} (host clock); launches {ENB0_HU_F32_LAUNCHES}")
     del cpu_infer
 
     pc_infer = make_infer_fn(model, upsample_to=PC_INPUT_HW, device=DEVICE)
@@ -1791,8 +1961,9 @@ def phase_apps(model, frames, card) -> dict:
             raise RuntimeError(f"depth_video preprocess on the card at {key}: "
                                f"max {pre_errs[key]} from its CPU run")
         del clip, diff
-    dw_sites, up_sites, _ = main_path_sites(model, VIDEO_INPUT_HW)
-    if (len(dw_sites), len(up_sites)) != (16, 4):
+    dw_sites, up_sites, _ = main_path_sites(model, VIDEO_INPUT_HW,
+                                            torch.float32)
+    if (len(dw_sites), len(up_sites)) != ENB0_HU_F32_LAUNCHES:
         raise RuntimeError(f"depth_video: {len(dw_sites)} depthwise and "
                            f"{len(up_sites)} upsample-conv sites")
     checks = phase_kernels(model, dw_sites, up_sites, "ENB0-HU video",
@@ -1802,7 +1973,8 @@ def phase_apps(model, frames, card) -> dict:
     batches = [video[i:i + VIDEO_BATCH]
                for i in range(0, VIDEO_FRAMES, VIDEO_BATCH)]
     counted(lambda: [depth_frames(v_infer, b) for b in batches],
-            (16 * len(batches), 4 * len(batches)), "depth_video")
+            tuple(n * len(batches) for n in ENB0_HU_F32_LAUNCHES),
+            "depth_video")
     depth_frames(v_infer, batches[0]).cpu()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1823,7 +1995,8 @@ def phase_apps(model, frames, card) -> dict:
         f"{VIDEO_BATCH}, f32, preprocess to {VIDEO_INPUT_HW} + forward + "
         f"upsample to {VIDEO_HEIGHT}x{VIDEO_WIDTH} + copy back): "
         f"{VIDEO_FRAMES / dt:.1f} frames/s (host clock), peak memory "
-        f"{peak:.3f} GiB; launches 16 + 4 a batch; preprocess vs its CPU "
+        f"{peak:.3f} GiB; launches {ENB0_HU_F32_LAUNCHES} a batch; "
+        "preprocess vs its CPU "
         f"run (frames of {', '.join(pre_errs)}) max abs "
         f"{', '.join(f'{e:.3g}' for e in pre_errs.values())} (<= "
         f"{PREPROCESS_ATOL}), values off by more than 1e-8: "
@@ -1861,25 +2034,17 @@ def main() -> int:
     phase_build()
     card = phase_card()
     model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
-    dw_sites, up_sites, einsum_sites = main_path_sites(model)
-    if (len(dw_sites), len(up_sites)) != (16, 4):
+    dw_sites, up_sites, _ = main_path_sites(model)
+    if (len(dw_sites), len(up_sites)) != ENB0_HU_LAUNCHES:
         raise RuntimeError(f"found {len(dw_sites)} depthwise and "
                            f"{len(up_sites)} direct upsample-conv sites")
     errs = phase_kernels(model, dw_sites, up_sites)[torch.bfloat16]
-    for name in NEW_SHAPE_CONFIGS:
-        other = random_model(name)
-        sites = main_path_sites(other)
-        counts = (len(sites[0]), len(sites[1]))
-        if counts != RANDOM_CONFIGS[name][3]:
-            raise RuntimeError(f"found {counts} kernel sites in {name}")
-        for key, e in phase_kernels(other, *sites[:2],
-                                    name)[torch.bfloat16].items():
-            errs[key] = max(errs[key], e)
-        del other, sites
+    other_errs, routes = phase_other_sites(model, card)
+    for key, e in other_errs.items():
+        errs[key] = max(errs[key], e)
     errs.update(phase_loss_kernels())
     serve, frames, launches = phase_serve(model)
-    res, rate = phase_time(model, serve, frames, card, dw_sites, up_sites,
-                           einsum_sites)
+    res, rate = phase_time(model, serve, frames, card, dw_sites, up_sites)
     configs = [dict(name="ENB0-HU", launches=dict(launches), **rate)]
     del serve, model
     phase_train_fixture()
@@ -1922,6 +2087,7 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"routes": routes}))
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"apps": apps}))
     print(json.dumps({"configs": configs}))

@@ -7,9 +7,19 @@ a depthwise ``(k, k, 1, C)`` kernel into PyTorch's ``(C, 1, k, k)``.
 ``to_jax_leaf`` inverts the map for one entry (key and value), so a port
 tensor (a parameter, its gradient or a statistic) can be compared with the
 JAX leaf it came from.
+
+Some JAX module names hold dots: numbered submodules (``_blocks.3``,
+``layer1.0``, ``norm.1``), DenseNet's old torchvision names
+(``features.conv0``, ``features.denseblock1.denselayer1``,
+``features.transition1.norm``) and SENet's ``layer0.conv1`` and
+``se_module.fc1``. The port nests a container for each dot, so joining a
+JAX path with '.' gives its key; ``_jax_modules`` joins the parts of a key
+back into those names.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -50,12 +60,21 @@ def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
     return state
 
 
+# A JAX module name that continues, after a dot, with the next part of a
+# key: DenseNet's ``features.*`` and ``features.denseblockN.*`` /
+# ``features.transitionN.*``, SENet's ``layer0.*`` and ``se_module.*``.
+_DOTTED_HEAD = re.compile(
+    r"features(\.(denseblock|transition)\d+)?|layer0|se_module")
+
+
 def _jax_modules(torch_modules: list[str]) -> list[str]:
-    """Re-join numbered submodules: ``["_blocks", "0"]`` → ``["_blocks.0"]``
-    (the JAX package names them ``_blocks.0``, ``layer1.0``)."""
+    """The JAX module names of a key's parts: a number joins the name
+    before it (``["_blocks", "0"]`` → ``["_blocks.0"]``, ``norm.1``), and
+    so does any part after a dotted head (``["layer0", "conv1"]`` →
+    ``["layer0.conv1"]``)."""
     out = []
     for part in torch_modules:
-        if part.isdigit() and out:
+        if out and (part.isdigit() or _DOTTED_HEAD.fullmatch(out[-1])):
             out[-1] = f"{out[-1]}.{part}"
         else:
             out.append(part)

@@ -43,6 +43,7 @@ from efficientdepthestimation_tpu_torch.models.registry import (
     model_from_checkpoint_name,
 )
 from efficientdepthestimation_tpu_torch.models.resnet import ResNetFeatures
+from efficientdepthestimation_tpu_torch.models.senet import SENetFeatures
 
 __all__ = ["load_torch_state_dict", "reference_key", "reference_state_dict",
            "load_reference_state_dict", "import_pth"]
@@ -123,8 +124,7 @@ def _resnet_midas_translator(parts: tuple[str, ...]) -> str:
 
 def _senet_hu_translator(parts: tuple[str, ...]) -> str:
     """Hu E_senet: base = Sequential(layer0@0, layer1@1, ... layer4@4)
-    (modules.py:108-121). The port builds no SENet encoder yet (ROADMAP
-    A7), so ``_encoder_translator`` does not pick this one."""
+    (modules.py:108-121)."""
     head, rest = parts[0], parts[1:]
     if head.startswith("layer0."):
         return ".".join(("base.0." + head[len("layer0."):],) + rest)
@@ -141,11 +141,18 @@ def _encoder(model: nn.Module) -> nn.Module | None:
 
 
 def _encoder_translator(model: nn.Module) -> Callable:
-    """The encoder-path translator of ``model``'s encoder class."""
+    """The encoder-path translator of ``model``'s encoder class: the
+    reference wraps EfficientNet in Sequential blocks under both decoders,
+    SENet under Hu2018 and ResNet under MiDaS; DenseNet and the rest keep
+    their own paths. SENet is tested first, so that no SENet takes a
+    ResNet translator (JAX ``_encoder_translator``)."""
     encoder = _encoder(model)
+    midas = isinstance(model, MidasNet)
     if isinstance(encoder, EfficientNetFeatures):
         return _efficientnet_blocks_translator(encoder.variant, "blocks")
-    if isinstance(encoder, ResNetFeatures) and isinstance(model, MidasNet):
+    if isinstance(encoder, SENetFeatures):
+        return _identity_translator if midas else _senet_hu_translator
+    if isinstance(encoder, ResNetFeatures) and midas:
         return _resnet_midas_translator
     return _identity_translator
 
@@ -214,9 +221,9 @@ def import_pth(path_or_file, model: nn.Module | None = None) -> nn.Module:
     A self-describing MidasNet dict builds its own architecture
     (lasinger2019.py:396-415) and warns on a schema version other than
     ``MIDAS_CHECKPOINT_VERSION``. A raw ``state_dict`` needs ``model`` or a
-    file named ``{ENC}-{DEC}.pth`` (``ValueError`` otherwise); a SENet or
-    DenseNet file parses, then the registry raises ``NotImplementedError``
-    naming ROADMAP A7.
+    file named ``{ENC}-{DEC}.pth`` (``ValueError`` otherwise); a SENet
+    encoder's keys are read in both of the reference's vintages
+    (``se_module.fc1`` and ``se_fc1``, reside_model.py:42-43).
     """
     state = load_torch_state_dict(path_or_file)
     if isinstance(state, Mapping) and "weights" in state \
@@ -225,11 +232,8 @@ def import_pth(path_or_file, model: nn.Module | None = None) -> nn.Module:
         state_dict = _fix_keys(state["weights"])
         model = midas_model(state) if model is None else model
     else:
-        # The port builds no SENet encoder yet: a SENet file (senet154, the
-        # se_resnet* zoo) raises here, in the registry, naming ROADMAP A7,
-        # and the 'se_' rewrite of its old keys (``_fix_keys(senet=True)``)
-        # joins this path with that encoder's class.
         if model is None:
             model = model_from_checkpoint_name(str(path_or_file))
-        state_dict = _fix_keys(state)
+        state_dict = _fix_keys(
+            state, senet=isinstance(_encoder(model), SENetFeatures))
     return load_reference_state_dict(model, state_dict).eval()

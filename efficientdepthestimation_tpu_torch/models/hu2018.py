@@ -50,7 +50,8 @@ class UpProjection(nn.Module):
         f = self.features
         k1 = _hwio(self.conv1.weight).to(x.dtype)
         k2 = _hwio(self.conv2.weight).to(x.dtype)
-        if should_fuse(tuple(x.shape[1:3]), tuple(size), x.shape[-1], f):
+        if should_fuse(tuple(x.shape[1:3]), tuple(size), x.shape[-1], f,
+                       x.dtype):
             b1, b2 = upsample_conv_pair(x, k1, k2, size)
         else:
             b = upsample_conv(x, torch.cat([k1, k2], dim=-1).contiguous(),

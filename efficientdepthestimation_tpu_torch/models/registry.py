@@ -3,8 +3,10 @@ checkpoint-name parsing.
 
 Counterpart of ``efficientdepthestimation_tpu/models/registry.py`` (the
 reference's ``define_model``, ReSIDE/train.py:20-38, and the MiDaS assembly,
-train.py:86-91). The port builds the ResNet and EfficientNet encoders under
-either decoder; the DenseNet and SENet encoders are ROADMAP item A7.
+train.py:86-91). Every encoder of the JAX registry builds under either
+decoder: ResNet, EfficientNet, DenseNet-161, SENet-154 and the rest of the
+vendored Cadene zoo (ReSIDE/models/senet.py:398-453), which no reference
+entry point instantiates (train.py:26-33).
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ from typing import Callable
 
 from torch import nn
 
+from efficientdepthestimation_tpu_torch.models.densenet import (
+    DenseNetFeatures,
+    densenet_block_channels,
+)
 from efficientdepthestimation_tpu_torch.models.efficientnet import (
     EFFICIENTNET_PARAMS,
     EfficientNetFeatures,
@@ -27,6 +33,11 @@ from efficientdepthestimation_tpu_torch.models.resnet import (
     RESNET_LAYERS,
     ResNetFeatures,
     resnet_block_channels,
+)
+from efficientdepthestimation_tpu_torch.models.senet import (
+    SENET_CONFIGS,
+    SENetFeatures,
+    senet_block_channels,
 )
 
 __all__ = ["ENCODER_SPECS", "EncoderSpec", "build_model", "define_model",
@@ -55,26 +66,25 @@ def _specs() -> dict[str, EncoderSpec]:
         specs[name] = EncoderSpec(
             name, functools.partial(EfficientNetFeatures, variant=name),
             tuple(efficientnet_block_channels(name)))
+    specs["densenet"] = specs["densenet161"] = EncoderSpec(
+        "densenet161", functools.partial(DenseNetFeatures,
+                                         variant="densenet161"),
+        tuple(densenet_block_channels("densenet161")))
+    for name in SENET_CONFIGS:
+        specs[name] = EncoderSpec(
+            name, functools.partial(SENetFeatures, variant=name),
+            tuple(senet_block_channels(name)))
+    specs["senet"] = specs["senet154"]
     return specs
 
 
 ENCODER_SPECS = _specs()
-
-# Encoders of the JAX package that the port does not build yet (the
-# DenseNet-161 and SENet-154 of DN161-HU/SN154-HU and the Cadene zoo).
-_UNPORTED_ENCODERS = ("densenet", "densenet161", "senet", "senet154",
-                      "se_resnet50", "se_resnet101", "se_resnet152",
-                      "se_resnext50_32x4d", "se_resnext101_32x4d")
 
 
 def encoder_spec(name: str) -> EncoderSpec:
     key = name.lower()
     if key in ENCODER_SPECS:
         return ENCODER_SPECS[key]
-    if key in _UNPORTED_ENCODERS:
-        raise NotImplementedError(
-            f"encoder '{name}' is not ported yet (ROADMAP A7); ported: "
-            f"{', '.join(ENCODER_SPECS)}")
     raise ValueError(f"Unknown encoder '{name}'")
 
 
@@ -131,11 +141,6 @@ _ENCODER_TOKENS = {
     "RN18": "resnet18", "RN101": "resnet101", "RN152": "resnet152",
     "DN161": "densenet161", "SN154": "senet154",
 }
-# Full encoder names the 3-part 'efficientnet-b0-hu2018.pth' form may use,
-# each with its canonical name (the JAX package's ENCODER_SPECS).
-_ENCODER_NAMES = {name: name for name in (*ENCODER_SPECS,
-                                          *_UNPORTED_ENCODERS)}
-_ENCODER_NAMES.update(densenet="densenet161", senet="senet154")
 
 
 def parse_checkpoint_name(filename: str) -> tuple[str, str]:
@@ -147,8 +152,8 @@ def parse_checkpoint_name(filename: str) -> tuple[str, str]:
         raise ValueError(f"Cannot parse model from checkpoint name '{filename}'")
     decoder = _DECODER_TOKENS.get(dec_tok, _DECODER_TOKENS.get(dec_tok.upper()))
     encoder = _ENCODER_TOKENS.get(enc_tok, _ENCODER_TOKENS.get(enc_tok.upper()))
-    if encoder is None:
-        encoder = _ENCODER_NAMES.get(enc_tok.lower())
+    if encoder is None and enc_tok.lower() in ENCODER_SPECS:
+        encoder = ENCODER_SPECS[enc_tok.lower()].name
     if encoder is None or decoder is None:
         raise ValueError(f"Cannot parse model from checkpoint name '{filename}'")
     return encoder, decoder

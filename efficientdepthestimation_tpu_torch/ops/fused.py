@@ -1,15 +1,18 @@
-"""Exact algebraic rewrite of conv5×5 ∘ align-corners upsample.
+"""Exact algebraic rewrite of conv5×5 ∘ align-corners upsample, and the
+choice of route at each Hu2018 decoder site.
 
 The Hu2018 decoder computes ``conv5×5(bilinear_upsample(x))``. Both the
 resize and the channel contraction are linear, so they commute: all 25 taps
 are contracted at the small resolution first, then resized with row/column
 shifted interpolation matrices whose zero rows are the conv's zero padding.
-This module copies ``efficientdepthestimation_tpu/ops/fused.py``:
-``should_fuse`` keeps the same constants, so the same sites take the same
-path; the rewrite itself is three ``torch.einsum`` matrix products.
+The rewrite copies ``efficientdepthestimation_tpu/ops/fused.py``: three
+``torch.einsum`` matrix products.
 
-The direct form (``should_fuse`` false) runs through the hand-written
-``ops.kernels.upproj.upsample_conv`` kernel instead.
+``should_fuse`` picks, per site, between that einsum route and the
+hand-written ``ops.kernels.upproj.upsample_conv`` kernel (the direct form).
+Both compute the same function; only the order of accumulation differs.
+Unlike the JAX package's ``should_fuse``, a roofline with a TPU's rates, it
+applies a rule fitted to the two routes' times on the H100.
 """
 
 from __future__ import annotations
@@ -24,50 +27,32 @@ from efficientdepthestimation_tpu_torch.ops.resize import (
     device_constant,
 )
 
-__all__ = ["should_fuse", "fuse_costs", "upsample_conv_pair"]
+__all__ = ["should_fuse", "upsample_conv_pair"]
 
-# Roofline rates of the JAX package's cost model (a TPU v5e chip, derated).
-# Only their ratio matters for the choice; they were not measured on the
-# H100 (ROADMAP: re-derive them there).
-_FLOPS_PER_S = 1.0e14
-_BYTES_PER_S = 5.5e11
-_BPE = 2  # bf16 activations on the serving path
-
-
-def _roofline(flops: float, bytes_: float) -> float:
-    return max(flops / _FLOPS_PER_S, bytes_ / _BYTES_PER_S)
-
-
-def fuse_costs(in_hw: tuple[int, int], out_hw: tuple[int, int],
-               cin: int, cout: int, taps: int = 5) -> tuple[float, float]:
-    """(direct, fused) estimated seconds per frame per branch."""
-    t2 = taps * taps
-    in_px = in_hw[0] * in_hw[1]
-    out_px = out_hw[0] * out_hw[1]
-
-    d_flops = 2 * out_px * t2 * cin * cout + 2 * out_px * cin * (in_hw[0] + taps)
-    d_bytes = _BPE * (in_px * cin + 2 * 2 * out_px * cin + out_px * cout)
-    direct = _roofline(d_flops, d_bytes)
-
-    f_flops = (
-        2 * in_px * t2 * cin * cout
-        + 2 * in_hw[0] * out_hw[1] * taps * cout * taps * in_hw[1]
-        + 2 * out_px * cout * taps * in_hw[0]
-    )
-    f_bytes = _BPE * (
-        in_px * cin + 2 * in_px * t2 * cout
-        + 2 * in_hw[0] * out_hw[1] * taps * cout
-        + out_px * cout
-    )
-    fused = _roofline(f_flops, f_bytes)
-    return direct, fused
+# The route at each Hu2018 decoder site, fitted to the faster of the two
+# at the 40 decoder sites of ENB0-HU, ENB4-HU, RN50-HU, DN161-HU and
+# SN154-HU at 228×304, timed by chip_smoke.py (``route_times``: both routes
+# on the same inputs by CUDA-graph replay, bf16 at batch 128; ENB0-HU's
+# sites also f32 at batch 8) on an NVIDIA H100 80GB HBM3 at a 700 W power
+# limit, in two runs that agreed on every site they share (the per-site
+# times are in PERF.md). The einsum route takes a site where the input
+# channels times the linear upsample factor exceed this, per dtype: the
+# kernel's work grows with cin × the output's pixels, the rewrite's mostly
+# with the output's pixels. In bf16 the kernel won up to 256 (RN50-HU's
+# D.up4) and lost from 276 (DN161-HU's D.up4); in f32, whose kernel runs
+# on the CUDA cores, it won up to 48 and lost from 80. Each threshold lies
+# between the two, so every measured site takes its measured route.
+_EINSUM_ABOVE = {"bfloat16": 264, "float32": 64}
 
 
 def should_fuse(in_hw: tuple[int, int], out_hw: tuple[int, int],
-                cin: int, cout: int, taps: int = 5) -> bool:
-    """True where the rewrite is cheaper under the roofline model."""
-    direct, fused = fuse_costs(in_hw, out_hw, cin, cout, taps)
-    return fused < direct
+                cin: int, cout: int, dtype: torch.dtype) -> bool:
+    """True where the einsum rewrite takes the site (``cin`` channels in,
+    ``cout`` a branch, activations f32 or bf16), False where the kernel
+    does: ``_EINSUM_ABOVE``'s rule, fitted to H100 timings. ``cout`` does
+    not enter it; it stays for the JAX function's signature."""
+    factor = (out_hw[0] * out_hw[1] / (in_hw[0] * in_hw[1])) ** 0.5
+    return cin * factor > _EINSUM_ABOVE[str(dtype).removeprefix("torch.")]
 
 
 @functools.lru_cache(maxsize=None)

@@ -57,9 +57,7 @@ def test_encoder_specs_match_jax():
         jspec = jax_registry.encoder_spec(name)
         assert (spec.name, spec.block_channels, spec.num_features) == \
             (jspec.name, jspec.block_channels, jspec.num_features), name
-    assert set(registry.ENCODER_SPECS) == {
-        n for n in jax_registry.ENCODER_SPECS
-        if n.startswith(("resnet", "efficientnet"))}
+    assert set(registry.ENCODER_SPECS) == set(jax_registry.ENCODER_SPECS)
     with pytest.raises(ValueError, match="Unknown encoder"):
         registry.encoder_spec("vgg16")
     with pytest.raises(ValueError, match="Unknown decoder"):
@@ -85,6 +83,8 @@ def test_midas_build_options_match_jax():
 
 @pytest.mark.parametrize("flags,encoder", [
     (dict(is_resnet=True), "resnet50"),
+    (dict(is_densenet=True), "densenet161"),
+    (dict(is_senet=True), "senet154"),
     (dict(is_efficientnet=True), "efficientnet-b0"),
     (dict(is_efficientnet=True, efficientnet_variant="efficientnet-b4"),
      "efficientnet-b4"),
@@ -95,8 +95,9 @@ def test_define_model_matches_jax(flags, encoder):
     assert isinstance(model, HuDepthModel)
     assert model.block_channel == tuple(jm.block_channel)
     assert model.num_features == jm.num_features
-    assert type(model.E).__name__ == {"resnet50": "ResNetFeatures"}.get(
-        encoder, "EfficientNetFeatures")
+    assert type(model.E).__name__ == {
+        "resnet50": "ResNetFeatures", "densenet161": "DenseNetFeatures",
+        "senet154": "SENetFeatures"}.get(encoder, "EfficientNetFeatures")
     with pytest.raises(ValueError, match="No encoder"):
         registry.define_model()
 
@@ -107,5 +108,6 @@ def test_model_from_checkpoint_name():
     assert isinstance(model, MidasNet) and model.output_size == (57, 76)
     assert isinstance(registry.model_from_checkpoint_name(
         "/a/ENB4-HU.ede"), HuDepthModel)
-    with pytest.raises(NotImplementedError, match="A7"):
-        registry.model_from_checkpoint_name("DN161-HU.pth")
+    dn161 = registry.model_from_checkpoint_name("DN161-HU.pth")
+    assert isinstance(dn161, HuDepthModel) and dn161.num_features == 2208
+    assert type(dn161.E).__name__ == "DenseNetFeatures"

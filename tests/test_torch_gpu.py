@@ -124,20 +124,33 @@ DW_SITES = [
     ((1, 1), 12, 5, 1, _S1K5), ((1, 1), 76, 3, 2, _S1K3),
     ((9, 11), 12, 3, 2, _S2K3), ((3, 5), 76, 3, 1, _S1K3),
 ]
-# The upsample-conv sites (input hw, output hw, C, O): the direct sites of
-# ENB0-HU, ENB4-HU and RN50-HU (D.up4: K is 800 KiB, so it streams through
-# the ring), their einsum sites (D.up1, MFF.up2-4, timed in chip_smoke.py),
-# then ragged ones: C = 13, O = 7 and 36, odd sizes, a size that is not 2x,
-# a 1x1 input.
+# The upsample-conv sites (input hw, output hw, C, O): ENB0-HU's
+# D.up2-4, MFF.up1 and MFF.up2 (the kernel's in bf16; in f32 D.up4 and
+# MFF.up1), ENB4-HU's and RN50-HU's D.up4 (K is 800 KiB, so it streams
+# through the ring), then the einsum route's sites of ENB0-HU (D.up1,
+# MFF.up3-4), ENB4-HU (D.up1, MFF.up2-4) and RN50-HU/SN154-HU (all but
+# D.up4), all of DN161-HU's (should_fuse's rule, ops/fused.py), then
+# ragged ones: C = 13, O = 7 and 36, odd sizes, a size that is not 2x, a
+# 1x1 input.
 UP_SITES = [
     ((14, 19), (28, 38), 80, 80), ((28, 38), (57, 76), 40, 40),
     ((57, 76), (114, 152), 20, 20), ((57, 76), (114, 152), 24, 32),
+    ((28, 38), (114, 152), 40, 32),
     ((14, 19), (28, 38), 112, 112), ((28, 38), (57, 76), 56, 56),
     ((57, 76), (114, 152), 28, 28), ((57, 76), (114, 152), 32, 32),
-    ((57, 76), (114, 152), 128, 128),
-    ((7, 9), (14, 19), 160, 160), ((28, 38), (114, 152), 40, 32),
+    ((28, 38), (114, 152), 56, 32), ((57, 76), (114, 152), 128, 128),
+    ((7, 9), (14, 19), 160, 160),
     ((14, 19), (114, 152), 80, 32), ((7, 9), (114, 152), 320, 32),
-    ((7, 9), (14, 19), 224, 224), ((7, 9), (114, 152), 448, 32),
+    ((7, 9), (14, 19), 224, 224), ((14, 19), (114, 152), 160, 32),
+    ((7, 9), (114, 152), 448, 32),
+    ((8, 10), (15, 19), 1024, 1024), ((15, 19), (29, 38), 512, 512),
+    ((29, 38), (57, 76), 256, 256), ((57, 76), (114, 152), 256, 32),
+    ((29, 38), (114, 152), 512, 32), ((15, 19), (114, 152), 1024, 32),
+    ((8, 10), (114, 152), 2048, 32),
+    ((7, 9), (14, 19), 1104, 1104), ((14, 19), (28, 38), 552, 552),
+    ((28, 38), (57, 76), 276, 276), ((57, 76), (114, 152), 138, 138),
+    ((57, 76), (114, 152), 192, 32), ((28, 38), (114, 152), 384, 32),
+    ((14, 19), (114, 152), 1056, 32), ((7, 9), (114, 152), 2208, 32),
     ((9, 11), (18, 22), 13, 7), ((9, 11), (17, 23), 13, 36),
     ((5, 7), (13, 9), 13, 7), ((1, 1), (2, 3), 13, 36),
     ((1, 1), (1, 1), 8, 8), ((6, 5), (6, 5), 16, 136),
@@ -353,7 +366,7 @@ def test_serving_on_card_matches_fixture():
     out = make_serving_fn(model, dtype=torch.bfloat16, preprocess=True)(
         frames)[..., 0].cpu()
     assert (depthwise_bn_swish.launches - dw,
-            upsample_conv.launches - up) == (16, 4)
+            upsample_conv.launches - up) == (16, 5)
     err = np.abs(out.numpy() - fixture["depth"])
     assert err.max() <= 0.5 and err.mean() <= 0.05
 
@@ -386,7 +399,8 @@ def test_lr_serving_on_card_matches_fixture():
 @pytest.mark.parametrize("encoder,decoder,seed", [
     ("efficientnet-b0", "lasinger2019", None),
     ("efficientnet-b4", "hu2018", 4), ("efficientnet-b4", "lasinger2019", 5),
-    ("resnet50", "hu2018", 6), ("resnet50", "lasinger2019", 7)])
+    ("resnet50", "hu2018", 6), ("resnet50", "lasinger2019", 7),
+    ("densenet161", "hu2018", 8), ("senet154", "hu2018", 9)])
 def test_config_on_card_matches_cpu(encoder, decoder, seed):
     _need_card()
     if seed is None:
@@ -401,6 +415,41 @@ def test_config_on_card_matches_cpu(encoder, decoder, seed):
     assert out.shape == ref.shape == (2, 114, 152, 1)
     scale = ref.abs().max().item()
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4 * scale)
+
+
+# One ENB0-HU site of each route in each dtype, as should_fuse's rule
+# gives them (ops/fused.py): (in hw, out hw, C, features a branch, dtype,
+# einsum route).
+ROUTE_SITES = [((28, 38), (114, 152), 40, 16, torch.bfloat16, False),
+               ((7, 9), (14, 19), 160, 80, torch.bfloat16, True),
+               ((57, 76), (114, 152), 20, 10, torch.float32, False),
+               ((7, 9), (14, 19), 160, 80, torch.float32, True)]
+
+
+@pytest.mark.parametrize("in_hw,out_hw,c,f,dtype,einsum", ROUTE_SITES)
+def test_upprojection_route_on_card(in_hw, out_hw, c, f, dtype, einsum):
+    """An UpProjection at a site of each route: should_fuse's route taken
+    (one kernel launch, or none), and the output at batch 2 against the
+    same module in f32 on the CPU: f32 to rtol 1e-4 and 1e-4 of the
+    largest |output| (sums in another order), bf16 to 2e-2 of it (its
+    input, branches and 3×3 conv each rounded to bf16)."""
+    from efficientdepthestimation_tpu_torch.models.hu2018 import UpProjection
+    from efficientdepthestimation_tpu_torch.ops.fused import should_fuse
+
+    _need_card()
+    assert should_fuse(in_hw, out_hw, c, f, dtype) == einsum
+    up = randomize_(UpProjection(c, f), 10).eval()
+    x = torch.randn(2, *in_hw, c, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        ref = up(x, out_hw)
+        launches = upsample_conv.launches
+        out = up.cuda().to(dtype)(x.cuda().to(dtype), out_hw).float().cpu()
+    assert upsample_conv.launches - launches == (0 if einsum else 1)
+    scale = ref.abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        assert (out - ref).abs().max().item() <= 2e-2 * scale
 
 
 def _loss_args(dtype, shape=(5, 37, 70), seed=0, offset=0):
@@ -629,7 +678,7 @@ def test_loss_wrappers_check_their_inputs_on_card():
 
 
 def test_bf16_train_step_on_card():
-    """One bf16 ENB0-HU step at batch 4: 1 + 1 loss launches, 4
+    """One bf16 ENB0-HU step at batch 4: 1 + 1 loss launches, 5
     upsample_conv, no depthwise kernel; finite loss; f32 masters move."""
     _need_card()
     model = load_any_checkpoint(CHECKPOINT)
@@ -645,7 +694,7 @@ def test_bf16_train_step_on_card():
     start = [c.launches for c in counters]
     state, metrics = step(state, batch, 0)
     torch.cuda.synchronize()
-    assert [c.launches - s for c, s in zip(counters, start)] == [1, 1, 4, 0]
+    assert [c.launches - s for c, s in zip(counters, start)] == [1, 1, 5, 0]
     assert np.isfinite(metrics["loss"].item())
     assert metrics["batch_size"].item() == 3.0
     assert model.R.conv2.weight.dtype == torch.float32
@@ -654,11 +703,11 @@ def test_bf16_train_step_on_card():
 
 # ---------------------------------------------------------- evaluation
 
-# ENB0-HU's 12 distinct depthwise shapes and 4 direct upsample-conv sites
-# (the first entries of DW_SITES and UP_SITES), at the evaluation's
-# batches: 1, the reference's, and 8, also ``inference_benchmark``'s (the
-# depthwise launch shape depends on B).
-ENB0_HU_DW_SITES, ENB0_HU_UP_SITES = DW_SITES[:12], UP_SITES[:4]
+# ENB0-HU's 12 distinct depthwise shapes and 5 upsample-conv sites of the
+# kernel's route (the first entries of DW_SITES and UP_SITES), at the
+# evaluation's batches: 1, the reference's, and 8, also
+# ``inference_benchmark``'s (the depthwise launch shape depends on B).
+ENB0_HU_DW_SITES, ENB0_HU_UP_SITES = DW_SITES[:12], UP_SITES[:5]
 EVAL_BATCHES = (1, 8)
 
 
@@ -730,7 +779,7 @@ def test_eval_step_on_card_matches_cpu():
                                  *eval_preprocess(rgb.cuda(), depth.cuda()),
                                  3)
     assert (depthwise_bn_swish.launches - dw,
-            upsample_conv.launches - up) == (16, 4)
+            upsample_conv.launches - up) == (16, 2)
     assert out.is_cuda and sums["batch_size"] == ref["batch_size"] == 3.0
     for key, value in ref.items():
         if key.startswith("delta"):
@@ -742,7 +791,7 @@ def test_eval_step_on_card_matches_cpu():
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("checkpoint,launches", [(CHECKPOINT, (16, 4)),
+@pytest.mark.parametrize("checkpoint,launches", [(CHECKPOINT, (16, 5)),
                                                  (LR_CHECKPOINT, (16, 0))])
 def test_pth_serves_as_its_ede_twin(checkpoint, launches, tmp_path):
     """ENB0-HU and ENB0-LR written as reference ``.pth`` files (a raw

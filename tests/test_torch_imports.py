@@ -150,9 +150,26 @@ def test_media_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):
 @pytest.mark.parametrize("encoder,decoder", [
     ("senet154", "hu2018"), ("densenet161", "hu2018"),
     ("densenet161", "lasinger2019")])
-def test_unported_models_name_the_roadmap_item(encoder, decoder):
-    with pytest.raises(NotImplementedError, match="A7"):
-        registry.build_model(encoder, decoder)
+def test_dn161_sn154_build_with_jax_keys(encoder, decoder):
+    """SN154-HU, DN161-HU and DN161-LR build with the JAX model's
+    variables (keys and shapes of ``jax.eval_shape``)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from efficientdepthestimation_tpu.models import registry as jreg
+    from efficientdepthestimation_tpu_torch.checkpoints.convert import (
+        from_jax_variables,
+    )
+
+    jm = jreg.build_model(encoder, decoder)
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, 96, 3)), False))
+    state = from_jax_variables(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes))
+    ours = registry.build_model(encoder, decoder).state_dict()
+    assert sorted(state) == sorted(ours)
+    assert all(state[k].shape == ours[k].shape for k in state)
 
 
 def test_parse_checkpoint_name_matches_jax():

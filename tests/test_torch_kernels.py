@@ -10,9 +10,11 @@ mode. The CUDA kernels themselves run only on a card
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
+from efficientdepthestimation_tpu.models import registry as jregistry
 from efficientdepthestimation_tpu.ops import conv as jconv
 from efficientdepthestimation_tpu.ops import fused as jfused
 from efficientdepthestimation_tpu.ops import resize as jresize
@@ -137,12 +139,11 @@ def test_upsample_conv_wrapper_runs_plain_on_cpu():
 
 
 def test_upsample_conv_pair_matches_jax():
-    """The einsum rewrite at a site should_fuse sends to it (D.up1)."""
+    """The einsum rewrite at D.up1's shape."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 7, 9, 12)).astype(np.float32)
     k1 = (0.1 * rng.standard_normal((5, 5, 12, 6))).astype(np.float32)
     k2 = (0.1 * rng.standard_normal((5, 5, 12, 6))).astype(np.float32)
-    assert fused.should_fuse((7, 9), (14, 19), 160, 80)
     r1, r2 = jfused.upsample_conv_pair(jnp.asarray(x), jnp.asarray(k1),
                                        jnp.asarray(k2), (14, 19))
     t1, t2 = fused.upsample_conv_pair(torch.from_numpy(x),
@@ -154,18 +155,126 @@ def test_upsample_conv_pair_matches_jax():
                                atol=1e-5)
 
 
-def test_should_fuse_matches_jax():
-    """Same cost model, same choice at every Hu decoder site shape."""
-    sites = [((7, 9), (14, 19), 160, 80), ((14, 19), (28, 38), 80, 40),
-             ((28, 38), (57, 76), 40, 20), ((57, 76), (114, 152), 20, 10),
-             ((57, 76), (114, 152), 24, 16), ((28, 38), (114, 152), 40, 16),
-             ((14, 19), (114, 152), 80, 16), ((7, 9), (114, 152), 320, 16),
-             ((12, 16), (48, 64), 2048, 16), ((6, 8), (12, 16), 1024, 512)]
-    for in_hw, out_hw, cin, cout in sites:
-        assert fused.should_fuse(in_hw, out_hw, cin, cout) == \
-            jfused.should_fuse(in_hw, out_hw, cin, cout)
-        assert fused.fuse_costs(in_hw, out_hw, cin, cout) == \
-            jfused.fuse_costs(in_hw, out_hw, cin, cout)
+def _hu_sites(encoder: str) -> list[tuple]:
+    """(site, in_hw, out_hw, cin, features) of every Hu2018 decoder site of
+    ``encoder``'s HU model at 228×304, from ``jax.eval_shape`` of the JAX
+    encoder's taps (nothing runs) and the decoder's wiring
+    (``models/hu2018.py``)."""
+    spec = jregistry.encoder_spec(encoder)
+    taps = jax.eval_shape(lambda: spec.factory().init_with_output(
+        jax.random.PRNGKey(0), jnp.zeros((1, 228, 304, 3)))[0])
+    hws = [tuple(t.shape[1:3]) for t in taps]
+    out_hw = (2 * hws[0][0], 2 * hws[0][1])
+    f = spec.num_features // 2
+    sizes = [hws[2], hws[1], hws[0], out_hw]
+    sites = [(f"D.up{i + 1}", hw, size, f >> i, f >> (i + 1))
+             for i, (hw, size) in enumerate(zip([hws[3], *sizes[:3]],
+                                                sizes))]
+    return sites + [(f"MFF.up{i + 1}", hw, out_hw, c, 16)
+                    for i, (hw, c) in enumerate(zip(hws,
+                                                    spec.block_channels))]
+
+
+# The faster route at each Hu2018 decoder site of ENB0-HU, ENB4-HU,
+# RN50-HU, DN161-HU and SN154-HU at 228×304, timed by chip_smoke.py
+# (``route_times``: both routes on the same inputs by CUDA-graph replay,
+# bf16 at batch 128; ENB0-HU's sites also f32 at batch 8) on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit: (in_hw, out_hw, cin, features per
+# branch, dtype) -> True where the einsum rewrite was faster, False where
+# the kernel was.
+H100_ROUTES: dict[tuple, bool] = {
+    # ENB0-HU
+    ((7, 9), (14, 19), 160, 80, "bfloat16"): True,  # D.up1
+    ((14, 19), (28, 38), 80, 40, "bfloat16"): False,  # D.up2
+    ((28, 38), (57, 76), 40, 20, "bfloat16"): False,  # D.up3
+    ((57, 76), (114, 152), 20, 10, "bfloat16"): False,  # D.up4
+    ((57, 76), (114, 152), 24, 16, "bfloat16"): False,  # MFF.up1
+    ((28, 38), (114, 152), 40, 16, "bfloat16"): False,  # MFF.up2
+    ((14, 19), (114, 152), 80, 16, "bfloat16"): True,  # MFF.up3
+    ((7, 9), (114, 152), 320, 16, "bfloat16"): True,  # MFF.up4
+    # ENB4-HU
+    ((7, 9), (14, 19), 224, 112, "bfloat16"): True,  # D.up1
+    ((14, 19), (28, 38), 112, 56, "bfloat16"): False,  # D.up2
+    ((28, 38), (57, 76), 56, 28, "bfloat16"): False,  # D.up3
+    ((57, 76), (114, 152), 28, 14, "bfloat16"): False,  # D.up4
+    ((57, 76), (114, 152), 32, 16, "bfloat16"): False,  # MFF.up1
+    ((28, 38), (114, 152), 56, 16, "bfloat16"): False,  # MFF.up2
+    ((14, 19), (114, 152), 160, 16, "bfloat16"): True,  # MFF.up3
+    ((7, 9), (114, 152), 448, 16, "bfloat16"): True,  # MFF.up4
+    # RN50-HU (SN154-HU's sites have these shapes)
+    ((8, 10), (15, 19), 1024, 512, "bfloat16"): True,  # D.up1
+    ((15, 19), (29, 38), 512, 256, "bfloat16"): True,  # D.up2
+    ((29, 38), (57, 76), 256, 128, "bfloat16"): True,  # D.up3
+    ((57, 76), (114, 152), 128, 64, "bfloat16"): False,  # D.up4
+    ((57, 76), (114, 152), 256, 16, "bfloat16"): True,  # MFF.up1
+    ((29, 38), (114, 152), 512, 16, "bfloat16"): True,  # MFF.up2
+    ((15, 19), (114, 152), 1024, 16, "bfloat16"): True,  # MFF.up3
+    ((8, 10), (114, 152), 2048, 16, "bfloat16"): True,  # MFF.up4
+    # DN161-HU
+    ((7, 9), (14, 19), 1104, 552, "bfloat16"): True,  # D.up1
+    ((14, 19), (28, 38), 552, 276, "bfloat16"): True,  # D.up2
+    ((28, 38), (57, 76), 276, 138, "bfloat16"): True,  # D.up3
+    ((57, 76), (114, 152), 138, 69, "bfloat16"): True,  # D.up4
+    ((57, 76), (114, 152), 192, 16, "bfloat16"): True,  # MFF.up1
+    ((28, 38), (114, 152), 384, 16, "bfloat16"): True,  # MFF.up2
+    ((14, 19), (114, 152), 1056, 16, "bfloat16"): True,  # MFF.up3
+    ((7, 9), (114, 152), 2208, 16, "bfloat16"): True,  # MFF.up4
+    # ENB0-HU, f32 at batch 8
+    ((7, 9), (14, 19), 160, 80, "float32"): True,  # D.up1
+    ((14, 19), (28, 38), 80, 40, "float32"): True,  # D.up2
+    ((28, 38), (57, 76), 40, 20, "float32"): True,  # D.up3
+    ((57, 76), (114, 152), 20, 10, "float32"): False,  # D.up4
+    ((57, 76), (114, 152), 24, 16, "float32"): False,  # MFF.up1
+    ((28, 38), (114, 152), 40, 16, "float32"): True,  # MFF.up2
+    ((14, 19), (114, 152), 80, 16, "float32"): True,  # MFF.up3
+    ((7, 9), (114, 152), 320, 16, "float32"): True,  # MFF.up4
+}
+
+
+# The sites of the five Hu2018 configurations timed on the card, each
+# shape once (SN154-HU's are RN50-HU's), in bf16, and ENB0-HU's in f32.
+ROUTE_SITES = sorted({
+    (in_hw, out_hw, cin, f, dtype): (enc, site)
+    for enc, dtypes in (("efficientnet-b0", ("bfloat16", "float32")),
+                        ("efficientnet-b4", ("bfloat16",)),
+                        ("resnet50", ("bfloat16",)),
+                        ("densenet161", ("bfloat16",)),
+                        ("senet154", ("bfloat16",)))
+    for site, in_hw, out_hw, cin, f in _hu_sites(enc)
+    for dtype in dtypes}.items())
+
+
+@pytest.mark.parametrize("key,where", ROUTE_SITES,
+                         ids=[f"{e}-{s}-{k[-1]}" for k, (e, s) in ROUTE_SITES])
+def test_should_fuse_follows_the_h100_table(key, where):
+    """Every Hu2018 decoder site of ENB0-HU, ENB4-HU, RN50-HU, DN161-HU and
+    SN154-HU has a route measured on the card and ``should_fuse`` takes
+    it; and at each site's spatial
+    shape (run small: batch 1, at most 24 channels in and 8 a branch) both
+    routes compute what JAX's ``upsample_conv`` / ``upsample_conv_pair``
+    do, to rtol 1e-4, atol 1e-5 (f32 sums in another order)."""
+    in_hw, out_hw, cin, f, dtype = key
+    assert key in H100_ROUTES, where
+    assert (fused.should_fuse(in_hw, out_hw, cin, f, getattr(torch, dtype))
+            == H100_ROUTES[key])
+    rng = np.random.default_rng(cin + f)
+    c, o = min(cin, 24), min(f, 8)
+    x = rng.standard_normal((1, *in_hw, c)).astype(np.float32)
+    k1, k2 = ((0.1 * rng.standard_normal((5, 5, c, o))).astype(np.float32)
+              for _ in range(2))
+    k = np.concatenate([k1, k2], axis=-1)
+    ref = np.asarray(jfused.upsample_conv(jnp.asarray(x), jnp.asarray(k),
+                                          out_hw))
+    refs = jfused.upsample_conv_pair(jnp.asarray(x), jnp.asarray(k1),
+                                     jnp.asarray(k2), out_hw)
+    kernel = upsample_conv(torch.from_numpy(x), torch.from_numpy(k), out_hw)
+    pair = fused.upsample_conv_pair(torch.from_numpy(x),
+                                    torch.from_numpy(k1),
+                                    torch.from_numpy(k2), out_hw)
+    np.testing.assert_allclose(kernel.numpy(), ref, rtol=1e-4, atol=1e-5)
+    for ours, theirs in zip(pair, refs):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                   rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("in_hw,out_hw", [((7, 9), (14, 19)),

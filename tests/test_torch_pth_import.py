@@ -114,7 +114,7 @@ def test_reference_keys_match_jax(encoder, decoder):
 @pytest.mark.parametrize("encoder,translator", [
     ("senet154", "_senet_hu_translator"),
     ("densenet161", "_identity_translator")])
-def test_unported_encoder_keys_match_jax(encoder, translator):
+def test_dn161_sn154_encoder_keys_match_jax(encoder, translator):
     """SN154-HU's and DN161-HU's reference keys, as strings: each JAX
     variable path through the port's translator against JAX's
     ``_torch_key``, and every SENet key vintage, with ``module.``
@@ -150,11 +150,24 @@ def test_unported_encoder_keys_match_jax(encoder, translator):
 
 
 @pytest.mark.parametrize("name", ["SN154-HU", "DN161-HU"])
-def test_unported_pth_names_roadmap_a7(name, tmp_path):
+def test_dn161_sn154_pth_load(name, tmp_path):
+    """SN154-HU and DN161-HU load from a ``.pth`` named for them: JAX's
+    numbered reference keys at full width under ``module.`` (SN154-HU's SE
+    keys in the released ``se_`` form), each leaf where JAX's
+    ``import_pth`` puts it."""
+    encoder = {"SN154-HU": "senet154", "DN161-HU": "densenet161"}[name]
+    jm = jax_build_model(encoder, "hu2018")
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *INPUT_HW, 3))))
+    tree = _numbered_tree(shapes)
+    ref = jpth.state_dict_from_variables(jm, tree)
     path = tmp_path / f"{name}.pth"
-    torch.save({"module.E.base.0.conv1.weight": torch.zeros(1)}, path)
-    with pytest.raises(NotImplementedError, match="A7"):
-        load_any_checkpoint(str(path), device="cpu")
+    torch.save({f"module.{k}".replace("se_module.", "se_"): v
+                for k, v in _torch_sd(ref).items()}, path)
+    model = load_any_checkpoint(str(path), device="cpu")
+    want = from_jax_variables(tree)
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, want[key].to(value.dtype)), key
 
 
 @pytest.mark.parametrize("name,encoder,decoder", [
@@ -268,8 +281,7 @@ def test_corrupt_file_raises_cleanly(tmp_path):
 def test_mixed_senet_key_vintages_load_identically():
     """Old ('se_fc1') and new ('se_module.fc1') SENet key styles, mixed per
     layer, fix to the same keys and values as in JAX (reside_model.py:
-    42-43). The port builds no SENet yet (ROADMAP A7), so the keys are
-    JAX's SN154-HU keys."""
+    42-43), on JAX's SN154-HU keys."""
     jm = jax_build_model("senet154", "hu2018")
     shapes = jax.eval_shape(lambda: jm.init(
         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *INPUT_HW, 3))))

@@ -54,8 +54,8 @@ from efficientdepthestimation_tpu_torch.models.efficientnet import (
     EfficientNetFeatures,
     MBConvBlock,
 )
+from efficientdepthestimation_tpu_torch.models import hu2018
 from efficientdepthestimation_tpu_torch.models.hu2018 import UpProjection
-from efficientdepthestimation_tpu_torch.ops.fused import should_fuse
 from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
     fused_depth_loss,
     fused_depth_loss_bwd,
@@ -63,6 +63,7 @@ from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
     fused_depth_loss_fwd,
     fused_depth_loss_fwd_plain,
 )
+from efficientdepthestimation_tpu_torch.ops.kernels.upproj import upsample_conv
 from efficientdepthestimation_tpu_torch.training import metrics as pmetrics
 from efficientdepthestimation_tpu_torch.training import train_step as pstep
 from efficientdepthestimation_tpu_torch.training.loss import depth_loss
@@ -297,8 +298,13 @@ def test_drop_connect_draws_from_the_generator():
     ((7, 9), (14, 19), 16, 8),   # direct: the upsample_conv op and its VJP
     ((5, 6), (20, 24), 24, 8),   # the einsum rewrite
 ])
-def test_upprojection_train_matches_jax(in_hw, size, cin, f):
-    assert should_fuse(in_hw, size, cin, f) == (cin == 24)
+def test_upprojection_train_matches_jax(in_hw, size, cin, f, monkeypatch):
+    """Each route forced, whatever ``should_fuse`` gives these shapes."""
+    einsum = cin == 24
+    monkeypatch.setattr(hu2018, "should_fuse", lambda *a: einsum)
+    calls = []
+    monkeypatch.setattr(hu2018, "upsample_conv",
+                        lambda *a: calls.append(a) or upsample_conv(*a))
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, *in_hw, cin)).astype(np.float32)
     g = rng.standard_normal((2, *size, f)).astype(np.float32)
@@ -316,6 +322,7 @@ def test_upprojection_train_matches_jax(in_hw, size, cin, f):
     _assert_grad_close(xt.grad.numpy(), gx)
     _assert_grads_match(up, gp)
     _assert_stats_match(up, stats)
+    assert len(calls) == (0 if einsum else 1)
 
 
 # ------------------------------------------------------- data and metrics
