@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one card: ENB0-HU serving and training,
 the route of each Hu2018 decoder site timed both ways, serving of the other
-released configurations and of DN161-HU and SN154-HU, evaluation, and
-reference ``.pth`` checkpoints served and run through the apps.
+released configurations and of DN161-HU and SN154-HU, evaluation,
+reference ``.pth`` checkpoints served and run through the apps, and the
+training CLI.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -88,11 +89,28 @@ Phases, one output line each (more for the per-site detail):
      frames, the points against ``unproject_depth`` on the CPU; frames/s),
      depth_video (16 frames at batch 8: the preprocess against the CPU, the
      kernels at its 456×608 sites, exact launches, frames/s, peak memory)
-     and inference's ``peak_memory`` at batch 8.
+     and inference's ``peak_memory`` at batch 8;
+ 11. the training CLI (``apps.train.main``): the kernels against their
+     plain versions at the shapes its eval epoch (f32, batch 64) and
+     training (bf16, batch 64) give them; ``generate_dataset`` written to
+     a temp directory (128 train and 16 test 480×640 PNG pairs, timed);
+     ENB0-HU from its ``.ede`` (``--init-from``, ``--bf16``, batch 64, one
+     epoch) uninterrupted, stopped after one step and resumed, with
+     deterministic cuDNN (the final train states bit for bit), and again
+     without it; the launches of every training and eval epoch, exact;
+     ``log.jsonl``; the best checkpoint and ENB0-LR's through the CLI
+     served in bf16 with exact launches; the rolling save and load ms; the
+     CLI's images/s with PNG decode and the loader and its peak memory;
+     then bf16 ENB0-HU steps under remat none, full and dots at batch 64
+     and ``accum_steps=2`` at 128 (exact launches, images/s, peak memory),
+     each held against the plain step in f32 at batch 8 (drop-connect on,
+     deterministic cuDNN; accumulation by the duplicated-microbatch rule);
+     RN50-HU and RN50-LR bf16 steps at batch 64 with random weights (exact
+     launches, a falling loss, images/s, peak memory).
 
 It prints a JSON line of the routes' times, a JSON line of the evaluation
-figures, a JSON line of the ``.pth`` and app figures, a JSON line of
-per-configuration figures, the card's name and power limit, a JSON line
+figures, a JSON line of the ``.pth`` and app figures, a JSON line of the
+training CLI's figures, a JSON line of per-configuration figures, the card's name and power limit, a JSON line
 of per-kernel figures, then, as its last line, ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without that
 line; so does a machine without a CUDA card.
@@ -119,6 +137,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from efficientdepthestimation_tpu_torch import MIDAS_CHECKPOINT_VERSION
+from efficientdepthestimation_tpu_torch.apps import train as train_app
 from efficientdepthestimation_tpu_torch.apps.common import (
     load_any_checkpoint,
     make_infer_fn,
@@ -155,12 +174,19 @@ from efficientdepthestimation_tpu_torch.checkpoints.pth_import import (
 )
 from efficientdepthestimation_tpu_torch.checkpoints.serialization import (
     load_checkpoint,
+    load_train_state,
+    read_ede,
+    save_train_state,
 )
-from efficientdepthestimation_tpu_torch.data.datasets import batch_iterator
+from efficientdepthestimation_tpu_torch.data.datasets import (
+    DepthPairDataset,
+    batch_iterator,
+)
 from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
     TEST_SEED_OFFSET,
-    synthetic_train_set,
     eval_pair,
+    generate_dataset,
+    synthetic_train_set,
 )
 from efficientdepthestimation_tpu_torch.data.transforms import (
     demo_preprocess,
@@ -207,6 +233,7 @@ from efficientdepthestimation_tpu_torch.training.metrics import (
 from efficientdepthestimation_tpu_torch.training.train_step import (
     create_train_state,
     make_train_step,
+    step_lr,
     step_seeds,
 )
 from efficientdepthestimation_tpu_torch.utils.pointcloud import (
@@ -373,6 +400,33 @@ STEP_TOL = dict(metrics=1e-4, grad=1e-2, stats=1e-4, flips=0.01)
 LOSS_FWD_OPS_PER_PX, LOSS_BWD_OPS_PER_PX = 45, 66
 LOSS_FWD_MUFU_PER_PX, LOSS_BWD_MUFU_PER_PX = 4, 5
 MUFU_OPS_PER_S = 132 * 16 * 1.98e9
+
+# Phase 11: the training CLI on generate_dataset's PNGs (192 train and 16
+# test pairs would take 19-23 s to write at the 0.090-0.110 s a pair this
+# phase measures on the card's host, more than the ~20 s it can spare, so
+# 128 train pairs), at the main path's batch. Launches
+# (depthwise, upsample-conv, loss forward, loss backward) of one bf16
+# ENB0-HU step under each policy: the recompute runs the upsample-conv
+# kernel again (its output is no aten operation a policy could keep), each
+# microbatch runs the forward and the loss (tests/test_torch_gpu.py and
+# tests/test_torch_train_accum_remat.py count the same); RN50-HU's D.up4 is
+# its one kernel site, RN50-LR has none.
+CLI_TRAIN_PAIRS, CLI_TEST_PAIRS, CLI_BATCH = 128, 16, 64
+KERNEL_COUNTERS = {"depthwise_bn_swish": depthwise_bn_swish,
+                   "upsample_conv": upsample_conv,
+                   "fused_depth_loss": fused_depth_loss_fwd,
+                   "fused_depth_loss_bwd": fused_depth_loss_bwd}
+TRAIN_STEP_LAUNCHES = {"none": (0, 5, 1, 1), "full": (0, 10, 1, 1),
+                       "dots": (0, 10, 1, 1), "accum2": (0, 10, 2, 2)}
+RN50_STEP_LAUNCHES = {"RN50-HU": (0, 1, 1, 1), "RN50-LR": (0, 0, 1, 1)}
+POLICY_WARMUP, POLICY_ITERS = 2, 5
+FALL_STEPS_RN50 = 5
+# Remat and accumulation against the plain step in f32 at CHECK_BATCH with
+# deterministic cuDNN: the recompute repeats the forward's operations, so
+# the loss and BN statistics are compared bit for bit and the gradients,
+# which the backward sums in another grouping where a recompute feeds it,
+# to REMAT_TOL of each leaf's largest value.
+CHECK_BATCH, REMAT_TOL = 8, 1e-5
 
 
 def fixture_frames() -> np.ndarray:
@@ -2023,10 +2077,460 @@ def phase_pth_apps(frames, card) -> dict:
     return dict(card=card, seconds=seconds, pth=loads, apps=apps)
 
 
+# ---------------------------------------------------------------- phase 11
+
+def all_launches() -> dict[str, int]:
+    """The four kernels' launch counts."""
+    return {name: c.launches for name, c in KERNEL_COUNTERS.items()}
+
+
+def launches_since(before: dict) -> tuple[int, ...]:
+    """(depthwise, upsample-conv, loss forward, loss backward) launched
+    since ``before``."""
+    torch.cuda.synchronize()
+    now = all_launches()
+    return tuple(now[k] - before[k] for k in KERNEL_COUNTERS)
+
+
+@contextlib.contextmanager
+def epoch_launches(parts: list):
+    """Record the launches of each training and eval epoch the CLI runs
+    (``(name, launches)`` in ``parts``), by wrapping the two epoch
+    functions of ``apps.train`` for the block."""
+    saved = train_app.run_train_epoch, train_app.run_eval_epoch
+
+    def counted_epoch(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = all_launches()
+            out = fn(*args, **kwargs)
+            parts.append((name, launches_since(before)))
+            return out
+        return run
+
+    train_app.run_train_epoch = counted_epoch("train", saved[0])
+    train_app.run_eval_epoch = counted_epoch("eval", saved[1])
+    try:
+        yield
+    finally:
+        train_app.run_train_epoch, train_app.run_eval_epoch = saved
+
+
+def run_cli(argv: list[str], workdir: str) -> tuple[str, list, float]:
+    """``apps.train.main(argv)`` run from ``workdir`` on the card, its
+    progress lines kept back (printed if it raises); returns its path, the
+    launches of each epoch and of the whole run (all four counts set to 0
+    just before it), and its seconds."""
+    parts, printed = [], io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    for c in KERNEL_COUNTERS.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with epoch_launches(parts), contextlib.redirect_stdout(printed):
+            path = train_app.main(argv + ["--device", DEVICE])
+    except BaseException:
+        print(printed.getvalue()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        os.chdir(cwd)
+    seconds = time.perf_counter() - t0
+    parts.append(("run", launches_since(dict.fromkeys(KERNEL_COUNTERS, 0))))
+    return os.path.join(workdir, path), parts, seconds
+
+
+def check_parts(name: str, parts: list, expected: list) -> None:
+    if parts != expected:
+        raise RuntimeError(f"{name}: launches (depthwise, upsample-conv, loss "
+                           f"forward, loss backward) {parts}, expected "
+                           f"{expected}")
+
+
+def add(*counts) -> tuple[int, ...]:
+    return tuple(map(sum, zip(*counts)))
+
+
+def scale(n: int, counts) -> tuple[int, ...]:
+    return tuple(n * c for c in counts)
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}/{key}"
+        if isinstance(value, dict):
+            out.update(flat_tree(value, name))
+        else:
+            out[name] = np.asarray(value)
+    return out
+
+
+def state_diff(path_a: str, path_b: str) -> dict:
+    """Largest |a − b| of two train-state files, by collection, and the
+    leaf where the largest is; 0 everywhere means bit for bit."""
+    (ha, ta), (hb, tb) = read_ede(path_a), read_ede(path_b)
+    fa, fb = flat_tree(ta), flat_tree(tb)
+    if fa.keys() != fb.keys() or ha["step"] != hb["step"]:
+        raise RuntimeError(f"train states differ in layout or step: "
+                           f"{ha['step']} vs {hb['step']}")
+    worst = {}
+    for key in fa:
+        col = key.split("/")[1]
+        d = float(np.abs(fa[key].astype(np.float64)
+                         - fb[key].astype(np.float64)).max(initial=0.0))
+        if d >= worst.get(col, (-1.0, ""))[0]:
+            worst[col] = (d, key)
+    return {col: dict(max_abs=d, leaf=k) for col, (d, k) in worst.items()}
+
+
+def timed_steps(state, step, batch, draws=None) -> dict:
+    """images/s (host clock, POLICY_ITERS steps after POLICY_WARMUP, the
+    batch on the card)
+    and peak memory of ``step`` on ``batch``."""
+    for _ in range(POLICY_WARMUP):
+        step(state, batch, 0, draws=draws)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(POLICY_ITERS):
+        step(state, batch, 0, draws=draws)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = batch["image"].shape[0]
+    return dict(images_per_s=n * POLICY_ITERS / dt,
+                step_ms=1e3 * dt / POLICY_ITERS,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def step_grads(model, batch, seed: int, **kw) -> tuple:
+    """(loss, gradients, running statistics) of one f32 step of a copy of
+    ``model`` on the card."""
+    model = copy.deepcopy(model)
+    state = create_train_state(model, LR, WEIGHT_DECAY)
+    _, metrics = make_train_step(device=DEVICE, **kw)(state, batch, seed)
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    stats = {k: v for k, v in model.state_dict().items() if "running" in k}
+    return float(metrics["loss"]), grads, stats
+
+
+def worst_grad_rel(grads: dict, ref: dict) -> float:
+    return max(float((grads[k] - g).abs().max() / g.abs().max().clamp_min(
+        1e-30)) for k, g in ref.items())
+
+
+def read_log(checkpoint: str) -> list[dict]:
+    """The records of the ``log.jsonl`` beside a run's checkpoint."""
+    with open(os.path.join(os.path.dirname(checkpoint), "log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_cli_data(tmp: str, card: str) -> tuple[str, str, dict]:
+    t0 = time.perf_counter()
+    train_csv, test_csv = generate_dataset(tmp, CLI_TRAIN_PAIRS,
+                                           CLI_TEST_PAIRS)
+    seconds = time.perf_counter() - t0
+    # what the loader alone takes: PNG decode and stacking, 4 threads
+    t0 = time.perf_counter()
+    decoded = sum(int(b["num_valid"]) for b in batch_iterator(
+        DepthPairDataset(train_csv), CLI_BATCH))
+    decode_s = time.perf_counter() - t0
+    log("11 train", f"{card}: generate_dataset wrote {CLI_TRAIN_PAIRS} "
+        f"train and {CLI_TEST_PAIRS} test 480x640 PNG pairs in "
+        f"{seconds:.2f} s ({seconds / (CLI_TRAIN_PAIRS + CLI_TEST_PAIRS):.3f}"
+        f" s a pair, one host thread); batch_iterator decodes the train "
+        f"split at {decoded / decode_s:.1f} pairs/s (4 threads, host "
+        "clock)")
+    return train_csv, test_csv, dict(write_s=seconds,
+                                     train_pairs=CLI_TRAIN_PAIRS,
+                                     test_pairs=CLI_TEST_PAIRS,
+                                     decode_pairs_per_s=decoded / decode_s)
+
+
+def phase_cli_enb0_hu(tmp, train_csv, test_csv, frames, card) -> dict:
+    """11b: ENB0-HU through the CLI, uninterrupted (A), stopped after one
+    step (B) and resumed (C), with deterministic cuDNN; again (E) without
+    it; the launches of each epoch; the final train states of A and C;
+    the log; the best checkpoint served; the rolling save and load."""
+    base = ["--encoder", "efficientnet-b0", "--decoder", "hu2018", "--bf16",
+            "--per-device-batch", str(CLI_BATCH), "--epochs", "1",
+            "--crop-hw", *map(str, INPUT_HW), "--train-csv", train_csv,
+            "--test-csv", test_csv]
+    init = ["--init-from", CHECKPOINT]
+    steps = CLI_TRAIN_PAIRS // CLI_BATCH
+    eval_fwd = (*ENB0_HU_F32_LAUNCHES, 0, 0)  # an f32 forward
+    rest = add(eval_fwd, TRAIN_STEP_LAUNCHES["none"])  # examples, probe
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, extra in (("A", []), ("B", ["--stop-after-steps", "1"])):
+            runs[name] = run_cli(base + init + extra, tmp)
+        rolling = runs["B"][0]
+        runs["C"] = run_cli(base + ["--resume", rolling], tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    runs["E"] = run_cli(base + init, tmp)
+    one = TRAIN_STEP_LAUNCHES["none"]
+    full_run = [("train", scale(steps, one)), ("eval", eval_fwd),
+                ("run", add(scale(steps, one), eval_fwd, rest))]
+    check_parts("CLI run A", runs["A"][1], full_run)
+    check_parts("CLI run E", runs["E"][1], full_run)
+    check_parts("CLI run B", runs["B"][1], [("train", one), ("run", one)])
+    resumed = scale(steps - 1, one)
+    check_parts("CLI run C", runs["C"][1],
+                [("train", resumed), ("eval", eval_fwd),
+                 ("run", add(resumed, eval_fwd, rest))])
+    if min(runs["A"][1][-1][1]) == 0:
+        raise RuntimeError(f"a kernel did not run in the CLI: {runs['A'][1]}")
+
+    state_of = {k: os.path.join(os.path.dirname(v[0]), "train_state.ede")
+                for k, v in runs.items()}
+    header_b, _ = read_ede(rolling)
+    if (header_b["step"], header_b["epoch"],
+            header_b.get("step_in_epoch")) != (1, 0, 1):
+        raise RuntimeError(f"the stopped run saved {header_b}")
+    resume = state_diff(state_of["A"], state_of["C"])
+    exact = all(v["max_abs"] == 0.0 for v in resume.values())
+    if not exact:
+        raise RuntimeError(f"resume with deterministic cuDNN differs from "
+                           f"the uninterrupted run: {resume}")
+    nondet = state_diff(state_of["A"], state_of["E"])
+
+    records = read_log(runs["A"][0])
+    want = {"mae", "mse", "abs_rel", "log10", "delta1", "delta2", "delta3",
+            "rmse", "loss", "vram_usage", "vram_source",
+            "training_frame_time", "test_frame_time", "inference_time"}
+    if len(records) != 1 or not want <= set(records[0]) or \
+            records[0]["vram_source"] != "live" or \
+            not np.isfinite(records[0]["loss"]):
+        raise RuntimeError(f"log.jsonl of the CLI run: {records}")
+    rec_e = read_log(runs["E"][0])[0]
+
+    model = load_any_checkpoint(runs["A"][0], device=DEVICE)
+    serve = make_serving_fn(model, upsample_to=FRAME_HW,
+                            dtype=torch.bfloat16, preprocess=True,
+                            device=DEVICE)
+    serve_counted(serve, frames[:8], "CLI best checkpoint",
+                  ENB0_HU_LAUNCHES)
+    del serve
+
+    state = create_train_state(model.to(DEVICE), step_lr(LR, steps),
+                               WEIGHT_DECAY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = load_train_state(state_of["A"], state)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    save_train_state(os.path.join(tmp, "copy.ede"), state,
+                     encoder="efficientnet-b0", decoder="hu2018", epoch=0)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    mib = os.path.getsize(state_of["A"]) / 2**20
+    del state, model
+
+    result = dict(
+        runs={k: dict(seconds=v[2], launches=v[1]) for k, v in runs.items()},
+        resume_bit_for_bit=exact, resume_max_abs=resume,
+        nondeterministic_max_abs=nondet,
+        images_per_s_deterministic=1.0 / records[0]["training_frame_time"],
+        images_per_s=1.0 / rec_e["training_frame_time"],
+        peak_gib=rec_e["vram_usage"] / 2**30,
+        test_frame_s=rec_e["test_frame_time"],
+        rolling_save_ms=save_ms, rolling_load_ms=load_ms, rolling_mib=mib)
+    log("11 train", f"{card}: CLI ENB0-HU bf16 batch {CLI_BATCH}, 1 epoch "
+        f"of {steps} steps on {CLI_TRAIN_PAIRS} PNG pairs ({INPUT_HW} crop): "
+        f"{result['images_per_s']:.1f} images/s with PNG decode and the "
+        f"loader ({result['images_per_s_deterministic']:.1f} with "
+        f"deterministic cuDNN), peak memory {result['peak_gib']:.2f} GiB "
+        f"(live); runs A/B/C/E "
+        + ", ".join(f"{k} {v[2]:.1f} s" for k, v in runs.items())
+        + f"; launches (depthwise, upsample-conv, loss fwd, loss bwd) of "
+        f"run A: {runs['A'][1]}")
+    log("11 train", f"{card}: --stop-after-steps 1 then --resume against the "
+        f"uninterrupted run, deterministic cuDNN: "
+        f"{'bit for bit' if exact else resume}; uninterrupted runs with and "
+        f"without deterministic cuDNN differ by {nondet}")
+    log("11 train", f"{card}: train_state.ede {mib:.1f} MiB: save "
+        f"{save_ms:.1f} ms, load onto the card {load_ms:.1f} ms; the best "
+        f"checkpoint serves bf16 with {ENB0_HU_LAUNCHES} launches")
+    return result
+
+
+def phase_cli_enb0_lr(tmp, train_csv, test_csv, frames, card) -> dict:
+    """11c: ENB0-LR through the CLI; its self-describing file serves."""
+    argv = ["--encoder", "efficientnet-b0", "--decoder", "lasinger2019",
+            "--bf16", "--per-device-batch", str(CLI_BATCH), "--epochs", "1",
+            "--crop-hw", *map(str, INPUT_HW), "--init-from", LR_CHECKPOINT,
+            "--train-csv", train_csv, "--test-csv", test_csv]
+    path, parts, seconds = run_cli(argv, tmp)
+    steps = CLI_TRAIN_PAIRS // CLI_BATCH
+    one, fwd = (0, 0, 1, 1), (16, 0, 0, 0)
+    check_parts("CLI ENB0-LR", parts,
+                [("train", scale(steps, one)), ("eval", fwd),
+                 ("run", add(scale(steps, one), fwd, fwd, one))])
+    header, _ = read_ede(path)
+    if header["format"] != "midas-self-describing" or \
+            header["output_size"] != [INPUT_HW[1] // 2, INPUT_HW[0] // 2]:
+        raise RuntimeError(f"ENB0-LR checkpoint header {header}")
+    serve = make_serving_fn(load_any_checkpoint(path, device=DEVICE),
+                            upsample_to=FRAME_HW,
+                            dtype=torch.bfloat16, preprocess=True,
+                            device=DEVICE)
+    serve_counted(serve, frames[:8], "CLI ENB0-LR checkpoint", (16, 0))
+    log("11 train", f"{card}: CLI ENB0-LR bf16 batch {CLI_BATCH}, 1 epoch: "
+        f"{seconds:.1f} s, launches {parts}; its midas-self-describing file "
+        "reloads and serves bf16 with 16 + 0 launches")
+    return dict(seconds=seconds, launches=parts)
+
+
+def phase_train_policies(card) -> dict:
+    """11d: ENB0-HU bf16 steps on one fixed batch: remat none, full, dots
+    at batch 64 and accum_steps=2 at 128 (launches, images/s, peak), each
+    held against the plain step in f32 at batch 8."""
+    out = {}
+    for policy, n, kw in (("none", TRAIN_BATCH, {}),
+                          ("full", TRAIN_BATCH, {"remat": "full"}),
+                          ("dots", TRAIN_BATCH, {"remat": "dots"}),
+                          ("accum2", 2 * TRAIN_BATCH, {"accum_steps": 2})):
+        batch = train_batch(range(n))
+        draws = draw_augmentation(torch.Generator().manual_seed(1), n)
+        state = create_train_state(
+            load_any_checkpoint(CHECKPOINT, device=DEVICE), LR, WEIGHT_DECAY)
+        step = make_train_step(mixed_precision=True, device=DEVICE, **kw)
+        before = all_launches()
+        _, metrics = step(state, batch, 0, draws=draws)
+        launches = launches_since(before)
+        if launches != TRAIN_STEP_LAUNCHES[policy]:
+            raise RuntimeError(f"{policy} step launches {launches}, expected "
+                               f"{TRAIN_STEP_LAUNCHES[policy]}")
+        if not np.isfinite(float(metrics["loss"])):
+            raise RuntimeError(f"{policy} step loss {float(metrics['loss'])}")
+        out[policy] = dict(batch=n, launches=launches,
+                           **timed_steps(state, step, batch, draws))
+        del state, step, batch
+        log("11 train", f"{card}: ENB0-HU bf16 step, {policy} at batch {n}: "
+            f"{out[policy]['images_per_s']:.1f} images/s "
+            f"({out[policy]['step_ms']:.2f} ms a step), peak memory "
+            f"{out[policy]['peak_gib']:.2f} GiB, launches {launches}")
+
+    # f32 at CHECK_BATCH, drop-connect on, the same generators (the step's
+    # seed), deterministic cuDNN: each remat policy against none
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+        batch = train_batch(range(CHECK_BATCH))
+        loss, grads, stats = step_grads(model, batch, 5)
+        for policy in ("full", "dots"):
+            loss_r, grads_r, stats_r = step_grads(model, batch, 5,
+                                                  remat=policy)
+            err = worst_grad_rel(grads_r, grads)
+            moved = max(float((stats_r[k] - v).abs().max())
+                        for k, v in stats.items())
+            if loss_r != loss or not err <= REMAT_TOL or moved != 0.0:
+                raise RuntimeError(f"remat {policy}: loss {loss_r} vs {loss}, "
+                                   f"gradients {err}, statistics {moved}")
+            out[policy].update(f32_grad_rel=err, f32_stats_max_abs=moved)
+        # the JAX rule: two copies of a microbatch give the step of one
+        # (drop-connect off: each microbatch draws its own masks)
+        model.E.drop_connect_rate = 0.0
+        half = train_batch(range(CHECK_BATCH // 2))
+        aug = draw_augmentation(torch.Generator().manual_seed(2),
+                                CHECK_BATCH // 2)
+        pre = train_preprocess(half["image"], half["depth"], aug)
+        single = {"image": pre[0], "depth": pre[1]}
+        doubled = {k: torch.cat([v, v]) for k, v in single.items()}
+        loss_1, grads_1, _ = step_grads(model, single, 5, preprocess=False)
+        loss_2, grads_2, _ = step_grads(model, doubled, 5, preprocess=False,
+                                        accum_steps=2)
+        err = worst_grad_rel(grads_2, grads_1)
+        if abs(loss_2 - loss_1) > 1e-6 * abs(loss_1) or not err <= REMAT_TOL:
+            raise RuntimeError(f"accum on a duplicated microbatch: loss "
+                               f"{loss_2} vs {loss_1}, gradients {err}")
+        out["accum2"].update(f32_grad_rel=err, f32_loss=(loss_2, loss_1))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("11 train", f"{card}: f32 at batch {CHECK_BATCH}, deterministic "
+        "cuDNN: remat full / dots against none with drop-connect on: "
+        f"gradients within {out['full']['f32_grad_rel']:.3g} / "
+        f"{out['dots']['f32_grad_rel']:.3g} of each leaf's largest value "
+        f"(<= {REMAT_TOL}), the loss and BN statistics bit for bit; "
+        "accum_steps=2 on a duplicated microbatch against one: gradients "
+        f"within {out['accum2']['f32_grad_rel']:.3g}")
+    return out
+
+
+def phase_rn50_steps(card) -> dict:
+    """11e: RN50-HU and RN50-LR at full width, random weights: bf16 steps at
+    batch 64 with exact launches, a loss that falls on a fixed batch,
+    images/s and peak memory."""
+    out = {}
+    batch = train_batch(range(TRAIN_BATCH))
+    draws = draw_augmentation(torch.Generator().manual_seed(1), TRAIN_BATCH)
+    for name, expected in RN50_STEP_LAUNCHES.items():
+        model = random_model(name)
+        state = create_train_state(model, LR, WEIGHT_DECAY)
+        step = make_train_step(mixed_precision=True, device=DEVICE)
+        before = all_launches()
+        _, metrics = step(state, batch, 0, draws=draws)
+        launches = launches_since(before)
+        if launches != expected:
+            raise RuntimeError(f"{name} step launches {launches}, expected "
+                               f"{expected}")
+        losses = [float(metrics["loss"])]
+        for _ in range(FALL_STEPS_RN50):
+            _, metrics = step(state, batch, 0, draws=draws)
+            losses.append(float(metrics["loss"]))
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f"{name}: the loss did not fall: {losses}")
+        if name == "RN50-HU":
+            _, up_sites, _ = main_path_sites(model, INPUT_HW)
+            phase_kernels(model, [], up_sites, "RN50-HU train",
+                          batch=TRAIN_BATCH, phase="11 train",
+                          dtypes=(torch.bfloat16,))
+        out[name] = dict(launches=launches, losses=losses,
+                         **timed_steps(state, step, batch, draws))
+        log("11 train", f"{card}: {name} (random weights) bf16 step at "
+            f"batch {TRAIN_BATCH}: launches {launches}; loss "
+            + " ".join(f"{v:.4f}" for v in losses)
+            + f"; {out[name]['images_per_s']:.1f} images/s, peak memory "
+            f"{out[name]['peak_gib']:.2f} GiB")
+        del model, state, step
+    return out
+
+
+def phase_train_cli(frames, card) -> dict:
+    """11: the training CLI on the card, its kernels at the shapes it gives
+    them, the remat and accumulation policies, and RN50 training."""
+    t0 = time.perf_counter()
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    dw_f32, up_f32, _ = main_path_sites(model, INPUT_HW, torch.float32)
+    _, up_bf16, _ = main_path_sites(model, INPUT_HW)
+    # the CLI's eval epoch (f32, batch 64) and bf16 training at batch 64
+    phase_kernels(model, dw_f32, up_f32, "ENB0-HU CLI eval",
+                  batch=CLI_BATCH, phase="11 train", dtypes=(torch.float32,))
+    phase_kernels(model, [], up_bf16, "ENB0-HU train", batch=TRAIN_BATCH,
+                  phase="11 train", dtypes=(torch.bfloat16,))
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        train_csv, test_csv, data = phase_cli_data(tmp, card)
+        hu = phase_cli_enb0_hu(tmp, train_csv, test_csv, frames, card)
+        lr = phase_cli_enb0_lr(tmp, train_csv, test_csv, frames, card)
+    policies = phase_train_policies(card)
+    rn50 = phase_rn50_steps(card)
+    seconds = time.perf_counter() - t0
+    log("11 train", f"ok: phase 11 in {seconds:.1f} s")
+    return dict(card=card, seconds=seconds, data=data, enb0_hu_cli=hu,
+                enb0_lr_cli=lr, policies=policies, rn50=rn50)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # The training CLI's run logger takes wandb when it imports: local
+    # files only.
+    os.environ["WANDB_MODE"] = "disabled"
     # f32 comparisons mean f32: no TF32 in cuDNN convs or matmuls.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2060,6 +2564,7 @@ def main() -> int:
         c["card"] = card
     evaluation = phase_eval(card)
     apps = phase_pth_apps(frames, card)
+    training = phase_train_cli(frames, card)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -2090,6 +2595,7 @@ def main() -> int:
     print(json.dumps({"routes": routes}))
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"apps": apps}))
+    print(json.dumps({"train": training}))
     print(json.dumps({"configs": configs}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,9 @@ are renamed and conv kernels transposed from HWIO to OIHW, which also turns
 a depthwise ``(k, k, 1, C)`` kernel into PyTorch's ``(C, 1, k, k)``.
 ``to_jax_leaf`` inverts the map for one entry (key and value), so a port
 tensor (a parameter, its gradient or a statistic) can be compared with the
-JAX leaf it came from.
+JAX leaf it came from; ``to_jax_variables`` inverts it for a whole
+``state_dict`` (or any dict keyed by parameter names, such as Adam's
+moments), which is what the ``.ede`` writers store.
 
 Some JAX module names hold dots: numbered submodules (``_blocks.3``,
 ``layer1.0``, ``norm.1``), DenseNet's old torchvision names
@@ -24,7 +26,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["from_jax_variables", "to_jax_leaf"]
+__all__ = ["from_jax_variables", "to_jax_leaf", "to_jax_variables"]
 
 _LEAF_NAMES = {
     ("params", "kernel"): "weight",
@@ -97,3 +99,19 @@ def to_jax_leaf(key: str, value) -> tuple[str, str, np.ndarray]:
         raise ValueError(f"no JAX leaf for {key} of shape {arr.shape}")
     collection = "batch_stats" if name.startswith("running_") else "params"
     return collection, "/".join([*_jax_modules(modules), leaf]), arr
+
+
+def to_jax_variables(state: dict) -> dict:
+    """A ``state_dict`` → ``{"params": ..., "batch_stats": ...}`` of numpy
+    arrays under the JAX module paths, conv kernels in HWIO: the inverse of
+    ``from_jax_variables``. The arrays are copies. A collection with no
+    entry is left out."""
+    tree: dict = {}
+    for key, value in state.items():
+        collection, path, arr = to_jax_leaf(key, value)
+        *modules, leaf = path.split("/")
+        node = tree.setdefault(collection, {})
+        for name in modules:
+            node = node.setdefault(name, {})
+        node[leaf] = np.array(arr, order="C")
+    return tree

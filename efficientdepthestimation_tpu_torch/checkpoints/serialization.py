@@ -1,43 +1,74 @@
-"""Reader for the JAX package's native ``.ede`` checkpoints, on msgpack alone.
+"""The JAX package's native ``.ede`` checkpoints, read and written on msgpack
+alone.
 
 Layout (``efficientdepthestimation_tpu/checkpoints/serialization.py``):
 ``b"EDE1"``, an 8-byte little-endian header length, a JSON header, then the
 flax variable tree as msgpack in which each array is extension type 1
-holding msgpack ``(shape, dtype name, raw C-order bytes)``.
+holding msgpack ``(shape, dtype name, raw C-order bytes)`` (a numpy scalar:
+type 3, the same payload), as ``flax.serialization.msgpack_serialize``
+writes it. A file either package writes loads in the other.
 
-Two model formats: ``hu2018-state`` (header ``encoder``, ``decoder``) and
-the reference's self-describing MidasNet schema, ``midas-self-describing``
-(``encoder.name``, ``decoder.num_features``/``non_negative``, and
-``input_size``/``output_size`` in **WH** order, which the model takes as HW).
+Four formats:
+
+- ``hu2018-state`` (header ``encoder``, ``decoder``): a Hu2018 model's
+  ``params`` and ``batch_stats`` (``save_checkpoint``);
+- ``midas-self-describing``, the reference's MidasNet schema
+  (``encoder.name``/``freeze_weights``, ``decoder.num_features``/
+  ``non_negative``, ``input_size``/``output_size`` in **WH** order, which the
+  model takes as HW, ``adversarial_training``, ``version``; ``save_midas``);
+- ``train-state``: the model, the optimizer in optax's state-dict layout and
+  the step, for an exact resume in either package (``save_train_state``);
+- ``discriminator``: ``models.midas.Discriminator`` (``save_discriminator``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import warnings
 
 import msgpack
 import numpy as np
+import torch
 from torch import nn
 
 from efficientdepthestimation_tpu_torch import MIDAS_CHECKPOINT_VERSION
 from efficientdepthestimation_tpu_torch.checkpoints.convert import (
     from_jax_variables,
+    to_jax_variables,
+)
+from efficientdepthestimation_tpu_torch.models.midas import (
+    Discriminator,
+    MidasNet,
 )
 from efficientdepthestimation_tpu_torch.models.registry import build_model
 
-__all__ = ["read_ede", "load_checkpoint", "load_midas", "check_midas_version",
-           "midas_model", "MAGIC"]
+__all__ = ["read_ede", "write_ede", "load_checkpoint", "save_checkpoint",
+           "load_midas", "save_midas", "check_midas_version", "midas_model",
+           "save_train_state", "load_train_state", "save_discriminator",
+           "load_discriminator", "MAGIC"]
 
 MAGIC = b"EDE1"
 _EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
 
 
 def _ext_hook(code: int, data: bytes):
-    if code != _EXT_NDARRAY:
+    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
         raise ValueError(f".ede: unsupported msgpack extension type {code}")
     shape, dtype, buf = msgpack.unpackb(data, raw=False)
-    return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+    arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+    return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def _ext_pack(obj):
+    if isinstance(obj, np.generic):
+        obj = np.asarray(obj)
+    if not isinstance(obj, np.ndarray):
+        raise TypeError(f".ede: cannot store {type(obj).__name__}")
+    payload = msgpack.packb((obj.shape, obj.dtype.name, obj.tobytes("C")),
+                            use_bin_type=True)
+    return msgpack.ExtType(_EXT_NDARRAY, payload)
 
 
 def read_ede(path: str) -> tuple[dict, dict]:
@@ -50,6 +81,21 @@ def read_ede(path: str) -> tuple[dict, dict]:
         header = json.loads(f.read(n).decode())
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return header, tree
+
+
+def write_ede(path: str, header: dict, tree: dict) -> None:
+    """Write ``header`` and a nested dict of numpy arrays as an ``.ede``
+    file (the JAX package's ``_write``). The file appears whole or not at
+    all: it is written beside its name and renamed over it."""
+    payload = msgpack.packb(tree, default=_ext_pack, strict_types=True)
+    header_bytes = json.dumps(header).encode()
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC)
+        f.write(len(header_bytes).to_bytes(8, "little"))
+        f.write(header_bytes)
+        f.write(payload)
+    os.replace(tmp, path)
 
 
 def check_midas_version(header: dict) -> None:
@@ -72,20 +118,58 @@ def midas_model(header: dict) -> nn.Module:
                        non_negative=decoder.get("non_negative", False))
 
 
+def _model_of(header: dict) -> nn.Module:
+    if header.get("format") == "midas-self-describing":
+        check_midas_version(header)
+        return midas_model(header)
+    return build_model(header["encoder"], header.get("decoder", "hu2018"))
+
+
 def load_checkpoint(path: str) -> tuple[nn.Module, dict]:
-    """(model with the checkpoint's weights, on the CPU, eval; header)."""
+    """(model with the checkpoint's weights, on the CPU, eval; header) of a
+    model file (``hu2018-state``, ``midas-self-describing``) or of a
+    ``train-state`` file's model."""
     header, tree = read_ede(path)
     fmt = header.get("format")
-    if fmt == "midas-self-describing":
-        check_midas_version(header)
-        model = midas_model(header)
-    elif fmt == "hu2018-state":
-        model = build_model(header["encoder"], header.get("decoder", "hu2018"))
-    else:
-        raise NotImplementedError(
-            f".ede format {fmt!r} is not ported yet (ROADMAP A10)")
+    if fmt not in ("midas-self-describing", "hu2018-state", "train-state"):
+        raise ValueError(f".ede format {fmt!r} holds no depth model")
+    model = _model_of(header)
     model.load_state_dict(from_jax_variables(tree), strict=True)
     return model, header
+
+
+def save_checkpoint(path: str, model: nn.Module, *, encoder: str,
+                    decoder: str, extra: dict | None = None) -> None:
+    """A model's weights and statistics with an architecture header
+    (``hu2018-state``, the JAX package's Hu-style checkpoint)."""
+    header = {"format": "hu2018-state", "encoder": encoder,
+              "decoder": decoder, "version": MIDAS_CHECKPOINT_VERSION,
+              **(extra or {})}
+    write_ede(path, header, to_jax_variables(model.state_dict()))
+
+
+def _encoder_name(model: nn.Module) -> str:
+    """The registry name of a model's encoder (its ``variant``), as the JAX
+    package's ``_encoder_name`` reads it from the encoder factory."""
+    return (model.encoder if isinstance(model, MidasNet) else model.E).variant
+
+
+def save_midas(path: str, model: MidasNet) -> None:
+    """A MidasNet with the reference's self-describing schema, sizes WH
+    (lasinger2019.py:372-415)."""
+    h_out, w_out = model.output_size
+    h_in, w_in = model.input_size or model.output_size
+    header = {
+        "format": "midas-self-describing",
+        "encoder": {"name": _encoder_name(model), "freeze_weights": False},
+        "decoder": {"num_features": int(model.decoder.feature_count),
+                    "non_negative": bool(model.decoder.non_negative)},
+        "input_size": (w_in, h_in),
+        "output_size": (w_out, h_out),
+        "adversarial_training": False,
+        "version": MIDAS_CHECKPOINT_VERSION,
+    }
+    write_ede(path, header, to_jax_variables(model.state_dict()))
 
 
 def load_midas(path: str) -> tuple[nn.Module, dict]:
@@ -94,3 +178,126 @@ def load_midas(path: str) -> tuple[nn.Module, dict]:
     if header.get("format") != "midas-self-describing":
         raise ValueError("Not a MidasNet checkpoint")
     return model, header
+
+
+# --- the train state, in optax's state-dict layout -------------------------
+#
+# ``adam_with_l2`` is ``optax.chain(add_decayed_weights, adam(lr))``, whose
+# state is ``{"0": {}, "1": {"0": {count, mu, nu}, "1": <lr>}}``: <lr> is
+# ``{"count"}`` for a schedule, ``{}`` for a constant. With frozen top-level
+# keys it is wrapped as ``{"inner_states": {"frozen": {"inner_state": {}},
+# "trained": {"inner_state": <that>}}}``, and ``mu``/``nu`` hold ``{}`` under
+# each frozen key. ``mu``/``nu`` are torch Adam's ``exp_avg``/``exp_avg_sq``
+# with the parameters' layout; ``count`` is the number of updates, which is
+# Adam's ``step`` and the LR schedule's count.
+
+
+def _opt_state_dict(state) -> dict:
+    params = dict(state.model.named_parameters())
+    moments = {"mu": {}, "nu": {}}
+    count = 0
+    for name, p in params.items():
+        if not p.requires_grad:
+            continue
+        adam = state.optimizer.state.get(p, {})
+        count = max(count, int(adam.get("step", 0)))
+        for key, torch_key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            moments[key][name] = adam.get(torch_key, torch.zeros_like(p))
+    count_arr = np.asarray(count, np.int32)
+    adam = {"count": count_arr}
+    for key, values in moments.items():
+        tree = to_jax_variables(values).get("params", {})
+        for top in state.frozen_prefixes:
+            tree[top] = {}
+        adam[key] = tree
+    chain = {"0": {}, "1": {"0": adam,
+                            "1": {"count": count_arr} if state.scheduled
+                            else {}}}
+    if not state.frozen_prefixes:
+        return chain
+    return {"inner_states": {"frozen": {"inner_state": {}},
+                             "trained": {"inner_state": chain}}}
+
+
+def _load_opt_state(state, opt: dict) -> None:
+    frozen = "inner_states" in opt
+    if frozen != bool(state.frozen_prefixes):
+        raise ValueError("train-state: the checkpoint's optimizer was built "
+                         f"{'with' if frozen else 'without'} frozen keys, "
+                         "this one the other way")
+    chain = opt["inner_states"]["trained"]["inner_state"] if frozen else opt
+    adam = chain["1"]["0"]
+    count = int(adam["count"])
+    mu = from_jax_variables({"params": adam["mu"]})
+    nu = from_jax_variables({"params": adam["nu"]})
+    params = dict(state.model.named_parameters())
+    trained = {n for n, p in params.items() if p.requires_grad}
+    if set(mu) != trained or set(nu) != trained:
+        raise ValueError("train-state: the optimizer's moments are not "
+                         "those of this model's trained parameters")
+    state.optimizer.state.clear()
+    for name in trained:
+        p = params[name]
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    state.set_count(count)
+
+
+def save_train_state(path: str, state, *, encoder: str, decoder: str,
+                     epoch: int, step_in_epoch: int | None = None) -> None:
+    """The whole training state (weights, BN statistics, Adam's moments and
+    count, the step) for an exact resume, in either package.
+
+    ``step_in_epoch`` is set for a mid-epoch save (``--save-every``, a
+    preemption): the batches of ``epoch`` already applied, which a resume
+    skips. ``None`` means that the epoch ended, and a resume starts the
+    next one."""
+    header = {"format": "train-state", "encoder": encoder,
+              "decoder": decoder, "epoch": int(epoch),
+              "step": int(state.step), "version": MIDAS_CHECKPOINT_VERSION}
+    if step_in_epoch is not None:
+        header["step_in_epoch"] = int(step_in_epoch)
+    payload = to_jax_variables(state.model.state_dict())
+    payload.setdefault("batch_stats", {})
+    payload["opt_state"] = _opt_state_dict(state)
+    write_ede(path, header, payload)
+
+
+def load_train_state(path: str, state):
+    """Restore a ``train-state`` file into a ``TrainState`` built for the
+    same model and optimizer (``create_train_state``), in place: weights,
+    statistics, Adam's moments, the update count (and so the LR schedule)
+    and the step. Returns ``(state, header)``."""
+    header, payload = read_ede(path)
+    if header.get("format") != "train-state":
+        raise ValueError("Not a train-state checkpoint")
+    device = next(state.model.parameters()).device
+    weights = from_jax_variables(payload)
+    state.model.load_state_dict({k: v.to(device) for k, v in weights.items()},
+                                strict=True)
+    _load_opt_state(state, payload["opt_state"])
+    state.step = int(header["step"])
+    return state, header
+
+
+def save_discriminator(path: str, model: Discriminator) -> None:
+    """The Discriminator's schema {'weights', 'options', 'version'}
+    (lasinger2019.py:457-472)."""
+    header = {"format": "discriminator",
+              "options": {"in_channels": int(model.in_channels),
+                          "adversarial_training": False},
+              "version": MIDAS_CHECKPOINT_VERSION}
+    write_ede(path, header, to_jax_variables(model.state_dict()))
+
+
+def load_discriminator(path: str) -> tuple[Discriminator, dict]:
+    """(Discriminator with the file's weights, on the CPU, eval; header)."""
+    header, tree = read_ede(path)
+    if header.get("format") != "discriminator":
+        raise ValueError("Not a Discriminator checkpoint")
+    check_midas_version(header)
+    model = Discriminator(header["options"]["in_channels"])
+    model.load_state_dict(from_jax_variables(tree), strict=True)
+    return model.eval(), header

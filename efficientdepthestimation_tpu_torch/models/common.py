@@ -7,6 +7,7 @@ carry the JAX package's module names, so a JAX parameter path joined with
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -15,7 +16,7 @@ from torch import nn
 from efficientdepthestimation_tpu_torch.ops.conv import conv2d
 from efficientdepthestimation_tpu_torch.ops.norm import batch_norm, fold_bn
 
-__all__ = ["Conv", "BatchNorm", "randomize_"]
+__all__ = ["Conv", "BatchNorm", "frozen_statistics", "randomize_"]
 
 
 class Conv(nn.Module):
@@ -51,8 +52,11 @@ class BatchNorm(nn.Module):
 
     The output is computed from ``x.float()`` and cast back to x's dtype;
     ``weight``/``bias`` may be bf16 (mixed precision), the statistics stay
-    f32.
+    f32. ``track_statistics = False`` (``frozen_statistics``) keeps the
+    running statistics as they are in training.
     """
+
+    track_statistics = True
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -75,13 +79,33 @@ class BatchNorm(nn.Module):
         mean = xf.mean(dim=(0, 1, 2))
         var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
         n = x.shape[0] * x.shape[1] * x.shape[2]
-        with torch.no_grad():
-            m = self.momentum
-            unbiased = var * (n / max(n - 1, 1))
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        if self.track_statistics:
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
         inv = torch.rsqrt(var + self.eps) * self.weight
         return (xf * inv + (self.bias - mean * inv)).to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: nn.Module):
+    """Within the block, every ``BatchNorm`` of ``model`` in training mode
+    normalizes by its batch but leaves its running statistics as they are:
+    for a forward that must not move them, such as the recompute of a
+    checkpointed forward or a gradient probe."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [m.track_statistics for m in norms]
+    for m in norms:
+        m.track_statistics = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, saved):
+            m.track_statistics = flag
 
 
 def randomize_(model: nn.Module, seed: int) -> nn.Module:

@@ -188,6 +188,7 @@ class Discriminator(nn.Module):
 
     def __init__(self, in_channels: int = 4):
         super().__init__()
+        self.in_channels = in_channels
         self.net = nn.Sequential(
             Conv(in_channels, 32, 7, bias=True), BatchNorm(32),
             ResidualBlock(32, 64, 2, project=True),

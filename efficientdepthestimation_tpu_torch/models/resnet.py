@@ -87,6 +87,7 @@ class ResNetFeatures(nn.Module):
 
     def __init__(self, variant: str = "resnet50"):
         super().__init__()
+        self.variant = variant
         block_name, layers = RESNET_LAYERS[variant]
         block = BasicBlock if block_name == "basic" else Bottleneck
         self.conv1 = Conv(3, 64, 7, 2, 3)

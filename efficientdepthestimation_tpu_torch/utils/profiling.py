@@ -39,9 +39,15 @@ def _nbytes(args) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def peak_memory(fn, example_args=(), device=None) -> tuple[int, str]:
+def peak_memory(fn=None, example_args=(), device=None) -> tuple[int, str]:
     """``(bytes, source)`` of one call ``fn(*example_args)`` on ``device``
     (by default the device of the first tensor argument).
+
+    With no ``fn``: on a CUDA card, ``"live"``, the caching allocator's
+    peak since its last ``reset_peak_memory_stats`` (the JAX package's
+    ``peak_memory()``, which reads the allocator's peak of the process);
+    on the CPU ``(0, "unavailable")``, where a caller measures a call
+    instead.
 
     - On a CUDA card, ``"live"``: the caching allocator's peak during the
       call (``torch.cuda.max_memory_allocated`` after
@@ -60,6 +66,10 @@ def peak_memory(fn, example_args=(), device=None) -> tuple[int, str]:
                    if isinstance(t, torch.Tensor)]
         device = tensors[0].device if tensors else torch.device("cpu")
     device = torch.device(device)
+    if fn is None:
+        if device.type != "cuda":
+            return 0, "unavailable"
+        return int(torch.cuda.max_memory_allocated(device)), "live"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)

@@ -852,3 +852,140 @@ def test_unproject_depth_on_card_matches_cpu():
         assert ref[0].shape[0] == 228 * 304 - 33 * 61
         torch.testing.assert_close(out[0].cpu(), ref[0], rtol=1e-6, atol=0)
         assert torch.equal(out[1].cpu(), ref[1])
+
+
+# ---------------------------------------------------------- training CLI
+
+def _raw_train_batch(n: int, num_valid=None) -> dict:
+    pairs = synthetic_train_set(range(n))
+    return {"image": torch.from_numpy(np.stack([p[0] for p in pairs])),
+            "depth": torch.from_numpy(np.stack([p[1] for p in pairs])),
+            "num_valid": n if num_valid is None else num_valid}
+
+
+def test_train_state_round_trip_on_card(tmp_path):
+    """A bf16 ENB0-HU step with E frozen, saved and loaded into a fresh
+    state on the card: every weight, statistic and Adam moment equal and
+    on the card, the step and the LR schedule's count restored."""
+    from efficientdepthestimation_tpu_torch.checkpoints.serialization import (
+        load_train_state,
+        save_train_state,
+    )
+    from efficientdepthestimation_tpu_torch.training.train_step import (
+        step_lr,
+    )
+
+    _need_card()
+
+    def fresh():
+        return create_train_state(load_any_checkpoint(CHECKPOINT),
+                                  step_lr(1e-4, 1, step_size=1), 1e-4,
+                                  frozen_prefixes=("E",))
+
+    state = fresh()
+    make_train_step(mixed_precision=True)(state, _raw_train_batch(2), 0)
+    path = str(tmp_path / "train_state.ede")
+    save_train_state(path, state, encoder="efficientnet-b0",
+                     decoder="hu2018", epoch=0, step_in_epoch=1)
+    loaded, header = load_train_state(path, fresh())
+    assert loaded.step == state.step == header["step"] == 1
+    for key, value in state.model.state_dict().items():
+        assert torch.equal(loaded.model.state_dict()[key], value), key
+    params = dict(state.model.named_parameters())
+    for name, p in loaded.model.named_parameters():
+        if not p.requires_grad:
+            assert name.startswith("E.")
+            continue
+        ours, ref = loaded.optimizer.state[p], state.optimizer.state[
+            params[name]]
+        assert ours["exp_avg"].is_cuda and float(ours["step"]) == 1.0
+        assert torch.equal(ours["exp_avg"], ref["exp_avg"]), name
+        assert torch.equal(ours["exp_avg_sq"], ref["exp_avg_sq"]), name
+    assert loaded.optimizer.param_groups[0]["lr"] == pytest.approx(1e-5)
+
+
+def test_device_prefetch_copies_before_use():
+    """Batches of 64 MB from a slow producer, each read on the consumer's
+    stream as soon as it is handed out: every value arrives."""
+    import time
+
+    from efficientdepthestimation_tpu_torch.data.prefetch import (
+        device_prefetch,
+    )
+
+    _need_card()
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.integers(0, 255, (64, 1024, 1024),
+                                      dtype=np.uint8),
+                "num_valid": i} for i in range(6)]
+
+    def slow():
+        for batch in batches:
+            time.sleep(0.005)
+            yield batch
+
+    seen = []
+    for batch in device_prefetch(slow(), size=2):
+        assert batch["image"].is_cuda
+        torch.cuda._sleep(1_000_000)  # a busy consumer stream
+        seen.append((batch["num_valid"],
+                     int(batch["image"].sum(dtype=torch.int64))))
+    assert seen == [(b["num_valid"], int(b["image"].sum(dtype=np.int64)))
+                    for b in batches]
+
+
+# Launches of one bf16 ENB0-HU step at batch 2 (upsample-conv, loss
+# forward, loss backward, depthwise), as the CPU counts the plain versions'
+# calls (tests/test_torch_train_accum_remat.py): the recompute runs the
+# upsample-conv kernel again, each microbatch the forward and the loss.
+TRAIN_LAUNCHES = {"none": (5, 1, 1, 0), "full": (10, 1, 1, 0),
+                  "dots": (10, 1, 1, 0), "accum2": (10, 2, 2, 0)}
+
+
+@pytest.mark.parametrize("policy", sorted(TRAIN_LAUNCHES))
+def test_train_step_launches_on_card(policy):
+    _need_card()
+    kw = ({"accum_steps": 2} if policy == "accum2" else
+          {"remat": None if policy == "none" else policy})
+    state = create_train_state(load_any_checkpoint(CHECKPOINT), 1e-4)
+    step = make_train_step(mixed_precision=True, **kw)
+    counters = (upsample_conv, fused_depth_loss_fwd, fused_depth_loss_bwd,
+                depthwise_bn_swish)
+    start = [c.launches for c in counters]
+    state, metrics = step(state, _raw_train_batch(2), 0)
+    torch.cuda.synchronize()
+    assert tuple(c.launches - s for c, s in zip(counters, start)) == \
+        TRAIN_LAUNCHES[policy]
+    assert np.isfinite(metrics["loss"].item())
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_matches_no_remat_on_card(remat):
+    """f32 ENB0-HU at batch 2 with drop-connect on, cuDNN deterministic:
+    the recompute draws the same masks and leaves the BN statistics as the
+    forward moved them; gradients to 1e-5 of each leaf's largest value."""
+    _need_card()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for policy in (None, remat):
+            model = load_any_checkpoint(CHECKPOINT)
+            model.E.drop_connect_rate = 0.2
+            state = create_train_state(model, 1e-4)
+            state, metrics = make_train_step(remat=policy)(
+                state, _raw_train_batch(2), 5)
+            out.append((metrics["loss"].item(),
+                        {n: p.grad for n, p in model.named_parameters()},
+                        model.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (loss_a, grads_a, stats_a), (loss_b, grads_b, stats_b) = out
+    assert loss_a == loss_b
+    for name, g in grads_a.items():
+        torch.testing.assert_close(grads_b[name], g, rtol=0,
+                                   atol=1e-5 * float(g.abs().max()),
+                                   msg=name)
+    for name, value in stats_a.items():
+        if "running" in name:
+            assert torch.equal(stats_b[name], value), name

@@ -31,8 +31,9 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_no_jax():
     modules = _port_modules()
-    assert "efficientdepthestimation_tpu_torch.ops.kernels.depthwise" in \
-        modules
+    for name in ("ops.kernels.depthwise", "data.prefetch",
+                 "utils.run_logger", "apps.train"):
+        assert f"efficientdepthestimation_tpu_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules] + [
             "import chip_smoke",
@@ -101,6 +102,25 @@ def test_eval_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
     train_step.make_eval_step(device="cpu")
+
+
+def test_training_entry_points_need_the_card_unless_cpu(monkeypatch,
+                                                        tmp_path):
+    """The training CLI and its step builders run on the card, and raise
+    without one, unless given ``--device cpu`` or ``device="cpu"``."""
+    from efficientdepthestimation_tpu_torch.apps import train
+    from efficientdepthestimation_tpu_torch.training import train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    for make in (train_step.make_train_step, train_step.make_grad_snapshot):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        make(device="cpu")
+    (tmp_path / "empty.csv").write_text("")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--train-csv", "empty.csv", "--test-csv", "empty.csv"])
+    assert not (tmp_path / "runs").exists()
 
 
 def test_media_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):
