@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port on one card: ENB0-HU serving and training,
 the route of each Hu2018 decoder site timed both ways, serving of the other
 released configurations and of DN161-HU and SN154-HU, evaluation,
-reference ``.pth`` checkpoints served and run through the apps, and the
-training CLI.
+reference ``.pth`` checkpoints served and run through the apps, the
+training CLI and the user-centred benchmark.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -106,11 +106,29 @@ Phases, one output line each (more for the per-site detail):
      each held against the plain step in f32 at batch 8 (drop-connect on,
      deterministic cuDNN; accumulation by the duplicated-microbatch rule);
      RN50-HU and RN50-LR bf16 steps at batch 64 with random weights (exact
-     launches, a falling loss, images/s, peak memory).
+     launches, a falling loss, images/s, peak memory);
+ 12. the user-centred benchmark (``benchmark.harness.main``): the kernels
+     against their plain versions at the sites ENB0-HU's and ENB0-LR's f32
+     forwards of the benchmark's 224×320 frames give them, at batch 4 and
+     at the remainder 654 test pairs leave (2), and ENB0-HU's timed at
+     batch 4; 8 test pairs of ``generate_dataset`` written with the NYU
+     ``camera.json`` (cut from 654 for time; fps 60, 303 views a sample,
+     mesh density 8, supersample 3 uncut); a seeded stand-in for the LPIPS
+     weights; ``main`` on the card with ENB0-HU, ENB0-LR and the flat
+     baseline: each model's depth-map launches exact, every output file
+     there, a second ``main`` hitting every cache with the same table; the
+     ``.raw`` depths against the port's CPU forward, the card's renders of
+     one sample against the CPU's (all three engines) and against the
+     golden rasterizer's floors, SSIM, PSNR and LPIPS against the CPU;
+     each engine's ms a view, views/s, busy time, idle share and peak
+     memory over a sweep, the phases' seconds and each model's
+     ``frame_time`` and peak memory. Without matplotlib on the machine,
+     ``visualise_results`` is left out, and the phase says so.
 
 It prints a JSON line of the routes' times, a JSON line of the evaluation
 figures, a JSON line of the ``.pth`` and app figures, a JSON line of the
-training CLI's figures, a JSON line of per-configuration figures, the card's name and power limit, a JSON line
+training CLI's figures, a JSON line of the benchmark's figures, a JSON line
+of per-configuration figures, the card's name and power limit, a JSON line
 of per-kernel figures, then, as its last line, ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without that
 line; so does a machine without a CUDA card.
@@ -2524,6 +2542,549 @@ def phase_train_cli(frames, card) -> dict:
                 enb0_lr_cli=lr, policies=policies, rn50=rn50)
 
 
+# Phase 12: the user-centred benchmark (``benchmark.harness.main``) on the
+# card. BENCH_PAIRS test pairs of generate_dataset (cut from NYU-v2's 654
+# for time) at 480x640 with the NYU camera.json; the renderer's settings
+# are the benchmark's own and uncut: fps 60 (303 views a sample), mesh
+# density 8, supersample 3, displacement 4.0. ENB0-HU and ENB0-LR from
+# their .ede and the flat baseline, f32 at batch BENCH_BATCH on the
+# nyu_eval_sample(32) frames (224x320); the kernels are held against their
+# plain versions there at the batch and at the remainder 654 pairs leave.
+BENCH_PAIRS, BENCH_BATCH, BENCH_FPS = 8, 4, 60
+BENCH_INPUT_HW = (224, 320)
+BENCH_KERNEL_BATCHES = (BENCH_BATCH, 654 % BENCH_BATCH)
+NYU_CAMERA = {"width": 640, "height": 480, "fx": 525.0, "fy": 525.0,
+              "cx": 320.0, "cy": 240.0}
+# model name -> (checkpoint, launches of one f32 forward: depthwise,
+# upsample-conv); flat launches none
+BENCH_MODELS = {"reside_enb0": (CHECKPOINT, ENB0_HU_F32_LAUNCHES),
+                "midas_enb0": (LR_CHECKPOINT, (16, 0)),
+                "flat": (None, (0, 0))}
+# The card's renders against the CPU's: the share of pixels whose colour
+# agrees within RENDER_PIXEL_ATOL, per engine, as tests/test_torch_renderer.py
+# holds the port against JAX on the CPU (a winner in a z-buffer tie, a
+# sample within an ulp of a pixel edge or a grazing ray may differ).
+RENDER_PIXEL_ATOL = 1e-4
+RENDER_SHARE = {"mesh": 0.999, "splat": 0.999, "raymarch": 0.99}
+# The views checked: the sweep's first 8 and its 5 stills.
+RENDER_CHECK_VIEWS = sorted(set(range(8)) | set(range(3, 303, 60)))
+# The golden rasterizer's floors, as tests/test_raster_golden.py asserts
+# them at 96x128 over 4 views of the reference sweep: (engine, scene seed,
+# mesh density) -> least SSIM.
+GOLDEN_HW = (96, 128)
+GOLDEN_FLOORS = {("mesh", 0, 4): 0.95, ("mesh", 0, 6): 0.95,
+                 ("raymarch", 0, 4): 0.97, ("raymarch", 0, 8): 0.97,
+                 ("raymarch", 3, 4): 0.97, ("raymarch", 3, 8): 0.97,
+                 ("splat", 0, 6): 0.90}
+# Visual metrics on the card against the CPU on the same stills: SSIM and
+# PSNR are f32 sums of 121 taps and means in another order (1e-5
+# absolute); LPIPS adds five convolutions of random weights (1e-4
+# relative, as tests/test_torch_benchmark.py holds it against JAX).
+VISUAL_ATOL, LPIPS_RTOL = 1e-5, 1e-4
+# Depth maps on the card against the port's CPU forward, TF32 off: metres.
+BENCH_DEPTH_ATOL = 1e-3
+
+
+def lpips_standin(tmp: str) -> str:
+    """A seeded random LPIPS-AlexNet in the torchvision and lpips 0.1.4
+    layouts, converted to the .npz both packages read (the real weights are
+    not in the repository)."""
+    from efficientdepthestimation_tpu_torch.checkpoints.lpips_convert import (
+        convert,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    alex, heads = {}, {}
+    for i, (idx, (cin, cout, k)) in enumerate(zip(
+            (0, 3, 6, 8, 10), ((3, 64, 11), (64, 192, 5), (192, 384, 3),
+                               (384, 256, 3), (256, 256, 3)))):
+        alex[f"features.{idx}.weight"] = 0.05 * torch.randn(
+            cout, cin, k, k, generator=g)
+        alex[f"features.{idx}.bias"] = 0.05 * torch.randn(cout, generator=g)
+        heads[f"lin{i}.model.1.weight"] = 0.1 * torch.rand(1, cout, 1, 1,
+                                                           generator=g)
+    paths = [os.path.join(tmp, f) for f in ("alexnet.pth", "lpips.pth",
+                                            "lpips_alex.npz")]
+    torch.save(alex, paths[0])
+    torch.save(heads, paths[1])
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert(*paths)
+    return paths[2]
+
+
+def bench_kernels(card) -> dict:
+    """Each kernel against its plain version at the sites ENB0-HU's and
+    ENB0-LR's f32 forwards of 224x320 frames give it, at the benchmark's
+    batch and remainder; then ENB0-HU's kernels timed at batch 4 in f32."""
+    timed = {}
+    for name, (path, per_forward) in BENCH_MODELS.items():
+        if path is None:
+            continue
+        model = load_any_checkpoint(path, device=DEVICE)
+        dw, up, _ = main_path_sites(model, BENCH_INPUT_HW, torch.float32)
+        if (len(dw), len(up)) != per_forward:
+            raise RuntimeError(f"{name}: {len(dw)} depthwise and {len(up)} "
+                               f"upsample-conv sites at {BENCH_INPUT_HW}")
+        for batch in BENCH_KERNEL_BATCHES:
+            phase_kernels(model, dw, up, name, batch=batch,
+                          phase="12 benchmark", dtypes=(torch.float32,))
+        if name == "reside_enb0":
+            timed = time_sites(model, card, dw, up, "12 benchmark", name,
+                               dtype=torch.float32, batch=BENCH_BATCH)
+    return timed
+
+
+@contextlib.contextmanager
+def harness_phases(record: list, launches: dict, plots: bool):
+    """Wrap the phases ``harness.main`` calls, for one block: each call's
+    wall seconds go to ``record``; each ``create_depth_maps`` runs with
+    the four kernels' counts set to 0 just before it and read just after
+    (``launches[model]``); without matplotlib, ``visualise_results`` is
+    left out, and says so."""
+    from efficientdepthestimation_tpu_torch.benchmark import (
+        harness,
+        noise,
+        renderer,
+    )
+
+    targets = [(renderer, "create_rendered_images"),
+               (noise, "create_noisy_depth_maps"),
+               (harness, "create_depth_maps"), (harness, "run_benchmark"),
+               (harness, "images_to_grid"), (harness, "visualise_results")]
+    saved = [getattr(mod, name) for mod, name in targets]
+
+    def label(name, args):
+        """The phase and what it works on: the last two parts of its
+        output directory, the model or the grid's kind."""
+        if name == "run_benchmark":
+            return f"{name} {args[2]}"
+        if name == "images_to_grid":
+            return f"{name} {args[1] if len(args) > 1 else 'depth'}"
+        if name == "visualise_results":
+            return name
+        return f"{name} " + "/".join(os.path.normpath(args[0]).split(
+            os.sep)[-2:])
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            if name == "visualise_results" and not plots:
+                log("12 benchmark", "visualise_results left out: this "
+                    "machine has no matplotlib (the plots are held on the "
+                    "CPU by tests/test_torch_benchmark_harness.py)")
+                return None
+            if name == "create_depth_maps":
+                torch.cuda.synchronize()
+                for c in KERNEL_COUNTERS.values():
+                    c.launches = 0
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.append((label(name, args), time.perf_counter() - t0))
+            if name == "create_depth_maps":
+                model = os.path.basename(os.path.dirname(args[0]))
+                launches[model] = launches_since(
+                    dict.fromkeys(KERNEL_COUNTERS, 0))
+            return out
+        return run
+
+    for (mod, name), fn in zip(targets, saved):
+        setattr(mod, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, fn)
+
+
+def run_harness(argv: list[str], plots: bool) -> tuple:
+    """``harness.main(argv)`` on the card, its progress lines kept back
+    (printed if it raises); returns its results, the phases' seconds, the
+    launches of each depth-map pass, its wall seconds and its output."""
+    from efficientdepthestimation_tpu_torch.benchmark import harness
+
+    record, launches, printed = [], {}, io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with harness_phases(record, launches, plots), \
+                contextlib.redirect_stdout(printed), \
+                contextlib.redirect_stderr(io.StringIO()):
+            results = harness.main(argv)
+    except BaseException:
+        print(printed.getvalue()[-4000:], file=sys.stderr)
+        raise
+    return (json.loads(json.dumps(results)), record, launches,
+            time.perf_counter() - t0, printed.getvalue())
+
+
+def expected_files(models: list[str], plots: bool) -> list[str]:
+    """Every file ``harness.main`` writes for BENCH_PAIRS samples."""
+    stills = [f"{k:06d}.png" for k in range(3, int(BENCH_FPS / 0.2) + 3,
+                                            BENCH_FPS)]
+    files = ["nyu.csv", "nyu.tex", "nyu-relative.csv", "nyu-relative.tex",
+             "nyu/nyu-depth.png", "nyu/nyu-rendered_images.png"]
+    if plots:
+        files += [f"plots/{p}.png" for p in ("frame_time", "memory_usage",
+                                             "abs_rel", "delta1", "ssim",
+                                             "psnr", "lpips")]
+    for name in ["ground_truth", "random", *models]:
+        render = "nyu/ground_truth" if name == "ground_truth" else \
+            f"nyu/{name}/rendered_images"
+        for i in range(BENCH_PAIRS):
+            files.append(f"{render}/video/{i:06d}.avi")
+            files += [f"{render}/image/{i:06d}/{s}" for s in stills]
+        if name == "ground_truth":
+            continue
+        files += [f"nyu/{name}/depth/png/{i:06d}.png"
+                  for i in range(BENCH_PAIRS)]
+        files += [f"nyu/{name}/{m}_benchmark_metadata.json"
+                  for m in ("standard", "visual")]
+        if name != "random":
+            files += [f"nyu/{name}/depth/raw/{i:06d}.raw"
+                      for i in range(BENCH_PAIRS)]
+            files.append(f"nyu/{name}/depth/metadata.json")
+    return sorted(files)
+
+
+def render_share(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(((a.float().cpu() - b.float()).abs().amax(-1)
+                  <= RENDER_PIXEL_ATOL).float().mean())
+
+
+def engine_times(image, depth01, views, card) -> dict:
+    """Each engine over one sample's whole sweep on the card: host seconds
+    to the synchronize after one warm-up sweep, ms a view and views/s, the
+    kernels' busy time and idle share (torch.profiler), the peak memory
+    above what was held, and the chunk of views."""
+    from efficientdepthestimation_tpu_torch.benchmark import renderer
+
+    out = {}
+    for engine, fn in renderer.RENDERERS.items():
+        def sweep():
+            return fn(image, depth01, views)
+
+        sweep()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        busy, records, top = kernel_busy(sweep, calls=1)
+        # splat points (mesh: supersampled 3x a side) or rays a view
+        per_view = (9 if engine == "mesh" else 1) * image.shape[0] \
+            * image.shape[1]
+        chunk = max(1, renderer.CHUNK_ELEMENTS // per_view)
+        out[engine] = dict(sweep_s=dt, ms_per_view=1e3 * dt / len(views),
+                           views_per_s=len(views) / dt, busy_ms=busy,
+                           idle_share=1 - busy / (1e3 * dt),
+                           peak_gib=peak, chunk_views=min(chunk, len(views)),
+                           points_or_rays_per_view=per_view)
+        log("12 benchmark", f"{card}: {engine} engine, one sample's sweep "
+            f"of {len(views)} views at {tuple(image.shape[:2])}: "
+            f"{dt:.3f} s ({1e3 * dt / len(views):.3f} ms a view, "
+            f"{len(views) / dt:.1f} views/s, host clock); kernels busy "
+            f"{busy:.1f} ms ({records:.0f} records), device idle share "
+            f"{1 - busy / (1e3 * dt):.3f}; peak {peak:.3f} GiB above the "
+            f"{held / 2**30:.3f} held, chunks of {min(chunk, len(views))} "
+            f"views ({per_view} points or rays a view); most device ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in top[:4]))
+    return out
+
+
+def bench_renders(data, card) -> dict:
+    """Each engine on the card against the port's CPU render of sample 0's
+    checked views (RENDER_SHARE), at the golden rasterizer's floors at
+    96x128, and timed over the whole sweep."""
+    from efficientdepthestimation_tpu_torch.benchmark import renderer
+    from efficientdepthestimation_tpu_torch.benchmark.metrics import ssim
+    from efficientdepthestimation_tpu_torch.benchmark.raster_reference import (
+        rasterize_views,
+    )
+    from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+        render_scene,
+    )
+
+    sample = data[0]
+    image = np.asarray(sample["image"], np.float32)
+    depth = np.squeeze(np.asarray(sample["depth"], np.float32))
+    depth01 = (depth - depth.min()) / (depth.max() - depth.min()
+                                       + np.finfo(np.float32).tiny)
+    views = torch.from_numpy(renderer.sweep_views(BENCH_FPS))
+    checked = views[RENDER_CHECK_VIEWS]
+    gpu = (torch.from_numpy(image).to(DEVICE),
+           torch.from_numpy(depth01).to(DEVICE))
+    shares = {}
+    for engine, fn in renderer.RENDERERS.items():
+        card_frames = fn(*gpu, checked)
+        cpu_frames = fn(torch.from_numpy(image), torch.from_numpy(depth01),
+                        checked)
+        shares[engine] = render_share(card_frames, cpu_frames)
+        if not shares[engine] >= RENDER_SHARE[engine]:
+            raise RuntimeError(f"{engine} on the card agrees with the CPU on "
+                               f"{shares[engine]:.5f} of the pixels")
+    log("12 benchmark", f"renders of {len(RENDER_CHECK_VIEWS)} views of "
+        f"sample 0 (the first 8 and the 5 stills) on the card against the "
+        "CPU: share of pixels within "
+        f"{RENDER_PIXEL_ATOL}: " + ", ".join(
+            f"{k} {v:.6f} (floor {RENDER_SHARE[k]})"
+            for k, v in shares.items()))
+
+    anim = renderer.reference_camera_animation(2.5)
+    gviews = np.stack([anim.transform_at(t) for t in np.linspace(
+        0.0, 5.0, 4, endpoint=False)]).astype(np.float32)
+    golden = {}
+    t0 = time.perf_counter()
+    for key, floor in GOLDEN_FLOORS.items():
+        engine, seed, density = key
+        rgb, dm = render_scene(seed, GOLDEN_HW)
+        d = dm.astype(np.float32)
+        img = rgb.astype(np.float32) / 255.0
+        d01 = (d - d.min()) / (d.max() - d.min())
+        ref = rasterize_views(img, d01, gviews, mesh_density=density)
+        kw = {} if engine == "splat" else {"mesh_density": density}
+        ours = renderer.RENDERERS[engine](
+            torch.from_numpy(img).to(DEVICE), torch.from_numpy(d01).to(DEVICE),
+            torch.from_numpy(gviews), **kw)
+        s = float(ssim(torch.from_numpy(ref).to(DEVICE), ours))
+        golden[key] = s
+        if not s >= floor:
+            raise RuntimeError(f"{engine} scene {seed} density {density}: "
+                               f"SSIM against the golden rasterizer {s:.4f} "
+                               f"< {floor}")
+    log("12 benchmark", f"the card's renders against the golden rasterizer "
+        f"at {GOLDEN_HW}, SSIM (floor) by engine, scene, density: "
+        + ", ".join(f"{e} {sd} {d} {v:.4f} ({GOLDEN_FLOORS[e, sd, d]})"
+                    for (e, sd, d), v in golden.items())
+        + f"; {time.perf_counter() - t0:.1f} s with the host rasterizer")
+    times = engine_times(*gpu, views, card)
+    return dict(card_vs_cpu_share=shares, engines=times, golden_ssim={
+        f"{e} scene {sd} density {d}": v for (e, sd, d), v in golden.items()})
+
+
+def bench_visual(out_dir: str, lpips_path: str) -> dict:
+    """SSIM, PSNR and LPIPS (seeded random weights) on the card against
+    the CPU on the same stills: the ground truth's and ENB0-HU's renders
+    of sample 0, normalized as the tracker does."""
+    from efficientdepthestimation_tpu_torch.benchmark.datasets import (
+        NestedImageFolderDataset,
+    )
+    from efficientdepthestimation_tpu_torch.benchmark.metrics import (
+        load_lpips_weights,
+        lpips_alex,
+        psnr,
+        ssim,
+    )
+
+    def stills(path):
+        ds = NestedImageFolderDataset(os.path.join(out_dir, "nyu", path))
+        x = np.stack([ds[i] for i in range(5)]).astype(np.float32)
+        return (x - x.min()) / max(x.max() - x.min(),
+                                   np.finfo(np.float32).tiny)
+
+    a = torch.from_numpy(stills("ground_truth/image"))
+    b = torch.from_numpy(stills("reside_enb0/rendered_images/image"))
+    errs, values = {}, {}
+    for name, fn in (("ssim", ssim), ("psnr", psnr)):
+        card_v, cpu_v = float(fn(a.to(DEVICE), b.to(DEVICE))), float(fn(a, b))
+        values[name], errs[name] = card_v, abs(card_v - cpu_v)
+        if not errs[name] <= VISUAL_ATOL:
+            raise RuntimeError(f"{name} on the card {card_v} against the "
+                               f"CPU {cpu_v}")
+    weights = load_lpips_weights(lpips_path)
+    cpu_v = lpips_alex(2 * a - 1, 2 * b - 1, weights)
+    card_v = lpips_alex(2 * a.to(DEVICE) - 1, 2 * b.to(DEVICE) - 1,
+                        load_lpips_weights(lpips_path, device=DEVICE)).cpu()
+    errs["lpips_rel"] = float(((card_v - cpu_v).abs() / cpu_v.abs()).max())
+    values["lpips"] = card_v.tolist()
+    if not errs["lpips_rel"] <= LPIPS_RTOL:
+        raise RuntimeError(f"lpips on the card {card_v} against the CPU "
+                           f"{cpu_v}")
+    log("12 benchmark", f"visual metrics of 5 stills on the card against "
+        f"the CPU: {values}; errors {errs} (SSIM, PSNR absolute, within "
+        f"{VISUAL_ATOL}; LPIPS relative, within {LPIPS_RTOL})")
+    return dict(values=values, errors=errs)
+
+
+def bench_depths(out_dir: str, tmp: str, csv_path: str) -> dict:
+    """Each model's ``.raw`` depth maps against the port's CPU forward of
+    the same frames, upsampled as ``create_depth_maps`` does."""
+    from efficientdepthestimation_tpu_torch.benchmark.datasets import (
+        DepthDataset,
+        ImageFolderDataset,
+        nyu_eval_sample,
+    )
+    from efficientdepthestimation_tpu_torch.benchmark.depth_model import (
+        MidasModel,
+        ReSIDEModel,
+    )
+
+    data = DepthDataset(csv_path, transform=nyu_eval_sample(32))
+    images = torch.from_numpy(np.stack([data[i]["image"]
+                                        for i in range(len(data))]))
+    errs = {}
+    for name, (path, _) in BENCH_MODELS.items():
+        raw = np.stack(list(ImageFolderDataset(os.path.join(
+            out_dir, "nyu", name, "depth", "raw"))))
+        if path is None:
+            want = np.zeros_like(raw)
+        else:
+            staged = os.path.join(tmp, os.path.basename(path).replace(
+                "-synthetic", ""))
+            model = (ReSIDEModel(staged, encoder="efficientnet-b0",
+                                 device="cpu") if name.startswith("reside")
+                     else MidasModel(staged, device="cpu"))
+            want = resize_bilinear_align_corners(
+                model(images)[..., None], images.shape[1:3])[..., 0].numpy()
+        errs[name] = float(np.abs(raw - want).max())
+        if raw.shape != (BENCH_PAIRS, *BENCH_INPUT_HW) or \
+                not errs[name] <= BENCH_DEPTH_ATOL:
+            raise RuntimeError(f"{name}: depth maps {raw.shape} differ from "
+                               f"the CPU forward by {errs[name]}")
+    log("12 benchmark", f"the .raw depth maps of the card's f32 forwards "
+        f"against the port's CPU forward of the same frames, max |Δ| m: "
+        f"{errs} (within {BENCH_DEPTH_ATOL})")
+    return errs
+
+
+def finite_or_none(obj):
+    """``obj`` with each NaN or infinite float as None (strict JSON), and
+    tuple keys joined."""
+    if isinstance(obj, dict):
+        return {(" ".join(map(str, k)) if isinstance(k, tuple) else k):
+                finite_or_none(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [finite_or_none(v) for v in obj]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return None
+    return obj
+
+
+def phase_benchmark(card) -> dict:
+    """12: the user-centred benchmark on the card through
+    ``benchmark.harness.main``, checked against the CPU and the golden
+    rasterizer, and timed."""
+    import importlib.util
+    import shutil
+
+    from efficientdepthestimation_tpu_torch.benchmark.datasets import (
+        DepthDataset,
+        nyu_eval_sample,
+    )
+
+    t0 = time.perf_counter()
+    timed = bench_kernels(card)
+    plots = importlib.util.find_spec("matplotlib") is not None
+    host = {m: importlib.util.find_spec(m) is not None
+            for m in ("pandas", "matplotlib", "cv2", "PIL")}
+    log("12 benchmark", f"host packages on this machine: {host}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        _, csv_path = generate_dataset(os.path.join(tmp, "nyu"), n_train=0,
+                                       n_test=BENCH_PAIRS)
+        with open(os.path.join(tmp, "nyu", "camera.json"), "w") as f:
+            json.dump(NYU_CAMERA, f)
+        log("12 benchmark", f"{BENCH_PAIRS} test pairs of generate_dataset "
+            f"at {FRAME_HW} written in {time.perf_counter() - t1:.1f} s "
+            f"(cut from NYU-v2's 654 test pairs for time; fps {BENCH_FPS}, "
+            "mesh density 8, supersample 3, displacement 4.0 uncut)")
+        staged = {}
+        for name, (path, _) in BENCH_MODELS.items():
+            if path is not None:
+                staged[name] = os.path.join(tmp, os.path.basename(
+                    path).replace("-synthetic", ""))
+                shutil.copy(path, staged[name])
+        lpips_path = lpips_standin(tmp)
+        os.environ["LPIPS_ALEX_WEIGHTS"] = lpips_path
+        out_dir = os.path.join(tmp, "out")
+        argv = ["--csv-path", csv_path, "--output-path", out_dir,
+                "--batch-size", str(BENCH_BATCH), "--renderer-fps",
+                str(BENCH_FPS), "--baseline-model", "reside_enb0",
+                "--models"] + [f"{k}={v}" for k, v in staged.items()]
+        results, record, launches, wall, _ = run_harness(argv, plots)
+
+        forwards = math.ceil(BENCH_PAIRS / BENCH_BATCH) + 1  # + peak probe
+        for name, (_, per_forward) in BENCH_MODELS.items():
+            want = (forwards * per_forward[0], forwards * per_forward[1], 0, 0)
+            if launches.get(name) != want:
+                raise RuntimeError(f"{name}: depth maps launched "
+                                   f"{launches.get(name)}, expected {want}")
+        log("12 benchmark", f"harness.main on the card in {wall:.1f} s; "
+            f"launches (depthwise, upsample-conv, loss forward, loss "
+            f"backward) of each model's depth maps, {forwards} f32 "
+            f"forwards ({forwards - 1} batches of {BENCH_BATCH} and the "
+            f"peak-memory call): {launches}")
+        files = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                       for d, _, fs in os.walk(out_dir) for f in fs)
+        missing = sorted(set(expected_files(list(BENCH_MODELS), plots))
+                         - set(files))
+        if missing:
+            raise RuntimeError(f"harness outputs missing: {missing[:10]}")
+        rows = results["nyu"]
+        for name, row in rows.items():
+            # LOG10 of the flat baseline's 0 m is NaN, as in the JAX
+            # package; MIFD is NaN where SIFT matches nothing
+            bad = [k for k, v in row.items() if k not in ("log10", "mifd")
+                   and not math.isfinite(v)]
+            if bad:
+                raise RuntimeError(f"{name}: non-finite {bad}")
+        for name in BENCH_MODELS:
+            src = json.load(open(os.path.join(out_dir, "nyu", name, "depth",
+                                              "metadata.json")))
+            if src["peak_memory_source"] != "live":
+                raise RuntimeError(f"{name}: memory {src}")
+
+        again, _, launches2, wall2, text2 = run_harness(argv, plots)
+        hits = text2.count("Found cached results")
+        # the ground truth's and the noisy maps' renders, the noisy maps,
+        # their two benchmarks; each model's depth maps, render and two
+        # benchmarks
+        expected_hits = 5 + 4 * len(BENCH_MODELS)
+        retimed = ("standard_benchmark_time", "visual_benchmark_time",
+                   "render_time")
+        same = all(again["nyu"][m][k] == v or v != v and again["nyu"][m][k]
+                   != again["nyu"][m][k] for m, row in rows.items()
+                   for k, v in row.items() if k not in retimed)
+        if hits != expected_hits or not same or any(
+                sum(v) for v in launches2.values()):
+            raise RuntimeError(f"second harness.main: {hits} cache hits "
+                               f"(expected {expected_hits}), same table "
+                               f"{same}, launches {launches2}")
+        log("12 benchmark", f"a second harness.main hit all {hits} caches "
+            f"in {wall2:.1f} s and returned the same table, 0 launches")
+
+        depth_errs = bench_depths(out_dir, tmp, csv_path)
+        visual = bench_visual(out_dir, lpips_path)
+        data = DepthDataset(csv_path, transform=nyu_eval_sample(1))
+        renders = bench_renders(data, card)
+        del os.environ["LPIPS_ALEX_WEIGHTS"]
+
+    phases = {}
+    for label, seconds in record:
+        phases[label] = phases.get(label, 0.0) + seconds
+    per_model = {m: {k: rows[m][k] for k in (
+        "frame_time", "peak_memory_usage", "render_time", "inference_time",
+        "inference_time_no_io")} for m in BENCH_MODELS}
+    seconds = time.perf_counter() - t0
+    log("12 benchmark", f"{card}: harness.main {wall:.1f} s by phase: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
+    log("12 benchmark", f"{card}: per model (frame_time s, peak GB, "
+        f"render_time s): " + "; ".join(
+            f"{m} " + ", ".join(f"{k}={v:.6g}" for k, v in r.items())
+            for m, r in per_model.items()))
+    log("12 benchmark", f"ok: phase 12 in {seconds:.1f} s")
+    return dict(card=card, seconds=seconds, pairs=BENCH_PAIRS,
+                fps=BENCH_FPS, views_per_sample=int(BENCH_FPS / 0.2) + 3,
+                main_s=wall, cached_main_s=wall2, phases_s=phases,
+                launches={k: list(v) for k, v in launches.items()},
+                per_model=per_model, table={m: {
+                    k: v for k, v in r.items()} for m, r in rows.items()},
+                depth_max_abs_m=depth_errs, visual=visual,
+                renders=renders, kernels_f32_batch4=timed,
+                host_packages=host, plots=plots)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2565,6 +3126,7 @@ def main() -> int:
     evaluation = phase_eval(card)
     apps = phase_pth_apps(frames, card)
     training = phase_train_cli(frames, card)
+    benchmark = phase_benchmark(card)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -2596,6 +3158,7 @@ def main() -> int:
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"apps": apps}))
     print(json.dumps({"train": training}))
+    print(json.dumps({"benchmark": finite_or_none(benchmark)}))
     print(json.dumps({"configs": configs}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -287,7 +287,8 @@ def save_discriminator(path: str, model: Discriminator) -> None:
     (lasinger2019.py:457-472)."""
     header = {"format": "discriminator",
               "options": {"in_channels": int(model.in_channels),
-                          "adversarial_training": False},
+                          "adversarial_training":
+                              bool(model.adversarial_training)},
               "version": MIDAS_CHECKPOINT_VERSION}
     write_ede(path, header, to_jax_variables(model.state_dict()))
 
@@ -298,6 +299,6 @@ def load_discriminator(path: str) -> tuple[Discriminator, dict]:
     if header.get("format") != "discriminator":
         raise ValueError("Not a Discriminator checkpoint")
     check_midas_version(header)
-    model = Discriminator(header["options"]["in_channels"])
+    model = Discriminator(**header["options"])
     model.load_state_dict(from_jax_variables(tree), strict=True)
     return model.eval(), header

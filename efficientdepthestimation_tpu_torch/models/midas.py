@@ -184,11 +184,14 @@ class MidasNet(nn.Module):
 
 class Discriminator(nn.Module):
     """The reference's patch-style GAN critic (lasinger2019.py:426-491):
-    NHWC (N, h, w, in_channels) to (N, 1, 1, 1)."""
+    NHWC (N, h, w, in_channels) to (N, 1, 1, 1). ``adversarial_training``
+    is metadata the checkpoint carries; it changes no computation."""
 
-    def __init__(self, in_channels: int = 4):
+    def __init__(self, in_channels: int = 4,
+                 adversarial_training: bool = False):
         super().__init__()
         self.in_channels = in_channels
+        self.adversarial_training = adversarial_training
         self.net = nn.Sequential(
             Conv(in_channels, 32, 7, bias=True), BatchNorm(32),
             ResidualBlock(32, 64, 2, project=True),

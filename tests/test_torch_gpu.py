@@ -7,6 +7,8 @@ imports no JAX, so it runs on a machine that has none; the repo's
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -989,3 +991,181 @@ def test_remat_matches_no_remat_on_card(remat):
     for name, value in stats_a.items():
         if "running" in name:
             assert torch.equal(stats_b[name], value), name
+
+
+# ------------------------------------------------------------ benchmark
+
+# The benchmark's depth maps: nyu_eval_sample(32) frames (224x320) in f32 at
+# batch 4, and the remainder 654 NYU test pairs leave at 4.
+BENCH_HW, BENCH_BATCHES = (224, 320), (4, 2)
+
+
+def _bench_sites(model):
+    """The inputs of each depthwise and upsample-conv kernel call of an f32
+    forward of BENCH_HW frames, recorded at batch 1 on the CPU: (kind,
+    shape arguments, parameters taken from the model)."""
+    from efficientdepthestimation_tpu_torch.models.efficientnet import (
+        MBConvBlock,
+    )
+    from efficientdepthestimation_tpu_torch.models.hu2018 import UpProjection
+    from efficientdepthestimation_tpu_torch.ops.fused import should_fuse
+
+    sites = []
+
+    def on_block(block, args):
+        taps = block._depthwise_conv.weight[:, 0].permute(1, 2, 0)
+        scale, bias = block._bn1.folded()
+        sites.append(("dw", (*args[0].shape[1:3], args[0].shape[-1]
+                             * block.expand), (taps, scale, bias),
+                      dict(stride=block.stride, padding=block.pad)))
+
+    def on_up(module, args):
+        x, size = args
+        if not should_fuse(tuple(x.shape[1:3]), tuple(size), x.shape[-1],
+                           module.features, torch.float32):
+            k = torch.cat([module.conv1.weight, module.conv2.weight],
+                          0).permute(2, 3, 1, 0)
+            sites.append(("up", tuple(x.shape[1:]), k, tuple(size)))
+
+    hooks = [m.register_forward_pre_hook(on_block) for m in model.modules()
+             if isinstance(m, MBConvBlock)]
+    hooks += [m.register_forward_pre_hook(on_up) for m in model.modules()
+              if isinstance(m, UpProjection)]
+    with torch.inference_mode():
+        model(torch.zeros(1, *BENCH_HW, 3))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+@pytest.mark.parametrize("batch", BENCH_BATCHES)
+@pytest.mark.parametrize("checkpoint,counts", [(CHECKPOINT, (16, 2)),
+                                               (LR_CHECKPOINT, (16, 0))])
+def test_kernels_match_plain_at_benchmark_sites(checkpoint, counts, batch):
+    """Each kernel against its plain version at every site ENB0-HU's and
+    ENB0-LR's f32 forwards of the benchmark's frames give it."""
+    _need_card()
+    model = load_any_checkpoint(checkpoint, device="cpu")
+    sites = _bench_sites(model)
+    assert (sum(s[0] == "dw" for s in sites),
+            sum(s[0] == "up" for s in sites)) == counts
+    g = torch.Generator().manual_seed(3)
+    for site in sites:
+        if site[0] == "dw":
+            _, (h, w, c), params, kw = site
+            x = torch.randn(batch, h, w, c, generator=g).cuda()
+            args = [x] + [p.contiguous().cuda() for p in params]
+            _check_dw(args, torch.float32, kw["stride"], kw["padding"])
+        else:
+            _, (h, w, c), k, size = site
+            x = torch.randn(batch, h, w, c, generator=g).cuda()
+            k = k.contiguous().cuda()
+            torch.testing.assert_close(upsample_conv(x, k, size),
+                                       upsample_conv_plain(x, k, size),
+                                       rtol=UP_TOL[torch.float32][0],
+                                       atol=UP_TOL[torch.float32][1])
+
+
+def _bench_frames(n: int = 4) -> np.ndarray:
+    from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+        render_scene,
+    )
+
+    return np.stack([render_scene(s, BENCH_HW)[0] for s in range(n)]).astype(
+        np.float32) / 255.0
+
+
+@pytest.mark.parametrize("kind", ["hu", "lr"])
+def test_benchmark_depth_models_on_card_match_cpu(kind):
+    """The benchmark's wrappers of ENB0-HU and ENB0-LR on the card against
+    the same wrappers on the CPU, f32 at batch 4, TF32 off: within 1e-3 m,
+    with one forward's launches exact."""
+    _need_card()
+    from efficientdepthestimation_tpu_torch.benchmark.depth_model import (
+        MidasModel,
+        ReSIDEModel,
+    )
+
+    def make(device):
+        if kind == "hu":
+            return ReSIDEModel(CHECKPOINT, encoder="efficientnet-b0",
+                               device=device)
+        return MidasModel(LR_CHECKPOINT, device=device)
+
+    images = torch.from_numpy(_bench_frames())
+    card = make(None)
+    depthwise.depthwise_bn_swish.launches = 0
+    upproj.upsample_conv.launches = 0
+    got = card(images)
+    torch.cuda.synchronize()
+    assert (depthwise.depthwise_bn_swish.launches,
+            upproj.upsample_conv.launches) == ((16, 2) if kind == "hu"
+                                               else (16, 0))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), make("cpu")(images), rtol=0,
+                               atol=1e-3)
+
+
+# The card's renders against the CPU's: the share of pixels whose colour
+# agrees within 1e-4 (tests/test_torch_renderer.py holds the port's CPU
+# renders against JAX's by the same measure).
+RENDER_SHARE = {"mesh": 0.999, "splat": 0.999, "raymarch": 0.99}
+
+
+@pytest.mark.parametrize("engine", sorted(RENDER_SHARE))
+def test_renderer_on_card_matches_cpu(engine):
+    _need_card()
+    from efficientdepthestimation_tpu_torch.benchmark import renderer
+    from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+        render_scene,
+    )
+
+    rgb, depth = render_scene(3, (240, 320))
+    image = torch.from_numpy(rgb.astype(np.float32) / 255.0)
+    d = torch.from_numpy(depth.astype(np.float32))
+    depth01 = (d - d.min()) / (d.max() - d.min())
+    views = torch.from_numpy(renderer.sweep_views(60))[
+        sorted(set(range(8)) | set(range(3, 303, 60)))]
+    fn = renderer.RENDERERS[engine]
+    got = fn(image.cuda(), depth01.cuda(), views)
+    want = fn(image, depth01, views)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    share = float(((got.cpu() - want).abs().amax(-1) <= 1e-4).float().mean())
+    assert share >= RENDER_SHARE[engine], share
+
+
+def test_rendered_sweep_and_visual_metrics_on_card(tmp_path):
+    """``create_rendered_images`` on the card writes the CPU's files and
+    stills within one grey level on all but 0.1% of the pixels; SSIM and
+    PSNR of the stills on the card equal the CPU's within 1e-5."""
+    _need_card()
+    from PIL import Image
+
+    from efficientdepthestimation_tpu_torch.benchmark import renderer
+    from efficientdepthestimation_tpu_torch.benchmark.metrics import (
+        psnr,
+        ssim,
+    )
+    from efficientdepthestimation_tpu_torch.data.synthetic_nyu import (
+        render_scene,
+    )
+
+    rgb, depth = render_scene(5, (240, 320))
+    samples = [{"image": rgb.astype(np.float32) / 255.0,
+                "depth": depth[..., None].astype(np.float32)}]
+    for device in ("cuda", "cpu"):
+        renderer.create_rendered_images(str(tmp_path / device), samples,
+                                        fps=2, device=device)
+    stills = {}
+    for device in ("cuda", "cpu"):
+        root = tmp_path / device / "image" / "000000"
+        stills[device] = np.stack([np.asarray(Image.open(root / f))
+                                   for f in sorted(os.listdir(root))])
+    assert stills["cuda"].shape == stills["cpu"].shape == (5, 240, 320, 3)
+    diff = np.abs(stills["cuda"].astype(int) - stills["cpu"].astype(int))
+    assert (diff.max(-1) <= 1).mean() >= 0.999
+    a = torch.from_numpy(stills["cpu"].astype(np.float32) / 255.0)
+    b = torch.from_numpy(np.roll(stills["cpu"], 2, axis=2).astype(
+        np.float32) / 255.0)
+    for fn in (ssim, psnr):
+        assert abs(float(fn(a.cuda(), b.cuda())) - float(fn(a, b))) <= 1e-5

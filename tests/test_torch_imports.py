@@ -32,7 +32,11 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax():
     modules = _port_modules()
     for name in ("ops.kernels.depthwise", "data.prefetch",
-                 "utils.run_logger", "apps.train"):
+                 "utils.run_logger", "apps.train", "utils.image_io",
+                 "checkpoints.lpips_convert", "benchmark",
+                 *(f"benchmark.{m}" for m in (
+                     "datasets", "depth_model", "harness", "metrics",
+                     "noise", "raster_reference", "renderer"))):
         assert f"efficientdepthestimation_tpu_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules] + [
@@ -165,6 +169,46 @@ def test_media_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):
                        str(tmp_path / "plys"), "--device", "cpu"])
     depth_video.main(["-i", str(frames), "-m", str(pth), "-o",
                       str(tmp_path / "video"), "--device", "cpu"])
+
+
+def test_benchmark_entry_points_need_the_card_unless_cpu(monkeypatch,
+                                                        tmp_path):
+    """The benchmark's main, its depth models, renderer sweep and visual
+    metrics raise without a card, before they write anything, unless
+    asked for the CPU."""
+    import numpy as np
+
+    from efficientdepthestimation_tpu_torch.benchmark import (
+        depth_model,
+        harness,
+        metrics,
+        renderer,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "bench"
+    for call in (
+            lambda: harness.main(["--csv-path", str(tmp_path / "x.csv"),
+                                  "--output-path", str(out)]),
+            lambda: depth_model.ReSIDEModel(CHECKPOINT,
+                                            encoder="efficientnet-b0"),
+            lambda: depth_model.ReSIDEModel(encoder="efficientnet-b0",
+                                            pretrained=False),
+            lambda: depth_model.MidasModel(LR_CHECKPOINT),
+            lambda: renderer.create_rendered_images(str(out), []),
+            lambda: metrics.VisualMetricsTracker(),
+            lambda: harness.create_depth_maps(str(out), None, []),
+            lambda: harness.test([], [], str(out))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not out.exists()
+    model = depth_model.MidasModel(LR_CHECKPOINT, device="cpu")
+    assert model(torch.zeros(1, 64, 96, 3)).device.type == "cpu"
+    assert metrics.VisualMetricsTracker(device="cpu").device.type == "cpu"
+    renderer.create_rendered_images(str(out), [], device="cpu")
+    frames = renderer.render_novel_views_mesh(
+        torch.zeros(8, 8, 3), torch.zeros(8, 8), np.eye(4)[None])
+    assert frames.shape == (1, 8, 8, 3)
 
 
 @pytest.mark.parametrize("encoder,decoder", [

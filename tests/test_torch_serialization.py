@@ -211,6 +211,30 @@ def test_jax_writes_port_reads(fmt, tmp_path):
     _assert_trees_equal(_variables(model), variables)
 
 
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_discriminator_adversarial_training_round_trip(writer, tmp_path):
+    """``adversarial_training: true`` survives a file written by either
+    package and read by both, with the weights unchanged."""
+    path = str(tmp_path / "disc.ede")
+    if writer == "jax":
+        jm = jax_midas.Discriminator(in_channels=4, adversarial_training=True)
+        variables = random_variables(jm, jnp.zeros((1, 40, 48, 4)), False,
+                                     seed=8)
+        jserialization.save_discriminator(path, jm, variables)
+    else:
+        model = randomize_(Discriminator(adversarial_training=True), 4)
+        serialization.save_discriminator(path, model)
+        variables = _variables(model)
+    model, header = serialization.load_discriminator(path)
+    jm, jvariables = jserialization.load_discriminator(path)
+    assert header["options"]["adversarial_training"] is True
+    assert model.adversarial_training is True
+    assert jm.adversarial_training is True
+    assert model.in_channels == jm.in_channels == 4
+    _assert_trees_equal(_variables(model), variables)
+    _assert_trees_equal(jvariables, variables)
+
+
 @pytest.mark.parametrize("source", ["ENB0-LR", "resnet18"])
 def test_save_midas_header_matches_jax(source, tmp_path):
     """The self-describing header, field for field, of ENB0-LR (from its
