@@ -14,7 +14,11 @@ Phases, one output line each (more for the per-site detail):
   1. build the three hand-written kernel sources with nvcc and print their
      registers, shared memory and spills (``-Xptxas -v``), and the loss
      kernels' f32 and MUFU operations a pixel counted in their SASS, which
-     must be the counts ``LOSS_*_PER_PX`` hold;
+     must be the counts ``LOSS_*_PER_PX`` hold; build the native host
+     libraries (``native/csrc/*.cpp``: the batch decoder, the PNG, JPEG and
+     MJPEG encoders) with g++ and print whether each built, the headers g++
+     finds (``png.h``, ``jpeglib.h``) and the compiler's message if one
+     did not: with both headers there, a failed build raises;
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel against its plain PyTorch version at every shape the
      ENB0-HU serving path gives it, and at the shapes ENB4-HU (32
@@ -101,12 +105,17 @@ Phases, one output line each (more for the per-site detail):
      ``log.jsonl``; the best checkpoint and ENB0-LR's through the CLI
      served in bf16 with exact launches; the rolling save and load ms; the
      CLI's images/s with PNG decode and the loader and its peak memory;
-     then bf16 ENB0-HU steps under remat none, full and dots at batch 64
-     and ``accum_steps=2`` at 128 (exact launches, images/s, peak memory),
-     each held against the plain step in f32 at batch 8 (drop-connect on,
-     deterministic cuDNN; accumulation by the duplicated-microbatch rule);
-     RN50-HU and RN50-LR bf16 steps at batch 64 with random weights (exact
-     launches, a falling loss, images/s, peak memory);
+     ``load_batch`` (the native decoder) against the PIL decode of every
+     pair of both splits, bit for bit; the loader's pairs/s on each decode
+     route and the CLI epoch's images/s and device idle share on each, in
+     turns (the PIL route by reporting the native decoder unavailable in
+     this process); then bf16 ENB0-HU steps under remat none, full and
+     dots at batch 64 and ``accum_steps=2`` at 128 (exact launches,
+     images/s, peak memory), each held against the plain step in f32 at
+     batch 8 (drop-connect on, deterministic cuDNN; accumulation by the
+     duplicated-microbatch rule); RN50-HU, RN50-LR, DN161-HU and SN154-HU
+     bf16 steps at batch 64 with random weights (exact launches, a falling
+     loss, images/s, peak memory);
  12. the user-centred benchmark (``benchmark.harness.main``): the kernels
      against their plain versions at the sites ENB0-HU's and ENB0-LR's f32
      forwards of the benchmark's 224×320 frames give them, at batch 4 and
@@ -122,10 +131,15 @@ Phases, one output line each (more for the per-site detail):
      golden rasterizer's floors, SSIM, PSNR and LPIPS against the CPU;
      each engine's ms a view, views/s, busy time, idle share and peak
      memory over a sweep, the phases' seconds and each model's
-     ``frame_time`` and peak memory. Without matplotlib on the machine,
+     ``frame_time`` and peak memory; ``create_rendered_images`` of every
+     sample on the native encode route (MJPEG AVI, libpng stills) and on
+     the cv2/PIL route, each's ``render_time``, the stills equal on both,
+     the AVI read back by cv2 with every view and within ENCODE_MEAN_ABS
+     of the rendered frames. Without matplotlib on the machine,
      ``visualise_results`` is left out, and the phase says so.
 
-It prints a JSON line of the routes' times, a JSON line of the evaluation
+It prints a JSON line of the native libraries' build, a JSON line of the
+routes' times, a JSON line of the evaluation
 figures, a JSON line of the ``.pth`` and app figures, a JSON line of the
 training CLI's figures, a JSON line of the benchmark's figures, a JSON line
 of per-configuration figures, the card's name and power limit, a JSON line
@@ -154,7 +168,10 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from efficientdepthestimation_tpu_torch import MIDAS_CHECKPOINT_VERSION
+from efficientdepthestimation_tpu_torch import (
+    MIDAS_CHECKPOINT_VERSION,
+    native,
+)
 from efficientdepthestimation_tpu_torch.apps import train as train_app
 from efficientdepthestimation_tpu_torch.apps.common import (
     load_any_checkpoint,
@@ -221,6 +238,10 @@ from efficientdepthestimation_tpu_torch.models.hu2018 import (
 from efficientdepthestimation_tpu_torch.models.midas import MidasNet
 from efficientdepthestimation_tpu_torch.models.registry import build_model
 from efficientdepthestimation_tpu_torch.models.senet import SENetFeatures
+from efficientdepthestimation_tpu_torch.native import build as native_build
+from efficientdepthestimation_tpu_torch.native import (
+    encoder as native_encoder,
+)
 from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
     upsample_conv_pair,
@@ -427,18 +448,21 @@ MUFU_OPS_PER_S = 132 * 16 * 1.98e9
 # ENB0-HU step under each policy: the recompute runs the upsample-conv
 # kernel again (its output is no aten operation a policy could keep), each
 # microbatch runs the forward and the loss (tests/test_torch_gpu.py and
-# tests/test_torch_train_accum_remat.py count the same); RN50-HU's D.up4 is
-# its one kernel site, RN50-LR has none.
+# tests/test_torch_train_accum_remat.py count the same); RN50-HU's and
+# SN154-HU's D.up4 is their one kernel site, RN50-LR and DN161-HU have none.
 CLI_TRAIN_PAIRS, CLI_TEST_PAIRS, CLI_BATCH = 128, 16, 64
+# The loader alone is timed LOADER_REPEATS times on each route, in turns.
+LOADER_REPEATS = 2
 KERNEL_COUNTERS = {"depthwise_bn_swish": depthwise_bn_swish,
                    "upsample_conv": upsample_conv,
                    "fused_depth_loss": fused_depth_loss_fwd,
                    "fused_depth_loss_bwd": fused_depth_loss_bwd}
 TRAIN_STEP_LAUNCHES = {"none": (0, 5, 1, 1), "full": (0, 10, 1, 1),
                        "dots": (0, 10, 1, 1), "accum2": (0, 10, 2, 2)}
-RN50_STEP_LAUNCHES = {"RN50-HU": (0, 1, 1, 1), "RN50-LR": (0, 0, 1, 1)}
+RANDOM_STEP_LAUNCHES = {"RN50-HU": (0, 1, 1, 1), "RN50-LR": (0, 0, 1, 1),
+                        "DN161-HU": (0, 0, 1, 1), "SN154-HU": (0, 1, 1, 1)}
 POLICY_WARMUP, POLICY_ITERS = 2, 5
-FALL_STEPS_RN50 = 5
+FALL_STEPS_RANDOM = 5
 # Remat and accumulation against the plain step in f32 at CHECK_BATCH with
 # deterministic cuDNN: the recompute repeats the forward's operations, so
 # the loss and BN statistics are compared bit for bit and the gradients,
@@ -601,6 +625,47 @@ def phase_build() -> None:
                 f"fused_depth_loss {kind}: the SASS holds {c['f32']:g} f32 and "
                 f"{c['mufu']:g} MUFU operations a pixel, LOSS_*_PER_PX "
                 f"{expected[kind]}: recount and update them")
+
+
+def phase_native_build() -> dict:
+    """1b: the native host libraries (``native/csrc/*.cpp``) built with g++
+    into ``_build/`` and loaded; the headers the build needs, as g++ finds
+    them. A failed build with both headers present raises; without them
+    the PIL and cv2 routes run, as in the JAX package, and this says so."""
+    found = native_build.headers()
+    out = {"headers": found}
+    for name, mod in (("batch_loader", native), ("encode", native_encoder)):
+        t0 = time.perf_counter()
+        path = mod.build_library()
+        seconds = time.perf_counter() - t0
+        ok = path is not None and mod.is_available()
+        out[name] = dict(built=ok, seconds=seconds, error=mod.build_error())
+        if not ok and all(found.values()):
+            raise RuntimeError(f"native {name}: png.h and jpeglib.h are "
+                               f"found but the build failed: "
+                               f"{mod.build_error()}")
+    out["available"] = out["batch_loader"]["built"] and \
+        out["encode"]["built"]
+    log("1 build", "native host libraries: headers found by g++ "
+        + ", ".join(f"{h} {'yes' if v else 'NO'}" for h, v in found.items())
+        + "; " + "; ".join(
+            f"{name} " + (f"built and loaded in {r['seconds']:.1f} s"
+                          if r["built"] else
+                          f"NOT built (the PIL/cv2 route runs): {r['error']}")
+            for name, r in out.items() if name in ("batch_loader", "encode")))
+    return out
+
+
+@contextlib.contextmanager
+def native_off():
+    """The native decoder and encoder reported unavailable in this process
+    for the block, so that every caller takes its PIL or cv2 route."""
+    saved = native.is_available, native_encoder.is_available
+    native.is_available = native_encoder.is_available = lambda: False
+    try:
+        yield
+    finally:
+        native.is_available, native_encoder.is_available = saved
 
 
 def sass_loops(sass: str, kernel: str) -> dict[str, float]:
@@ -1435,6 +1500,25 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
 PROFILER_TRIES = 5
 
 
+def device_spans(prof) -> list[tuple[float, float]]:
+    """The (start, end) µs of every device record of a profiler trace."""
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def union_us(spans: list[tuple[float, float]]) -> float:
+    """µs covered by the union of sorted (start, end) intervals."""
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return busy + hi - lo
+
+
 def kernel_busy(fn, calls: int = 2) -> tuple:
     """Device busy ms per ``fn()`` call (the union of the kernels' intervals
     in a ``torch.profiler`` trace of ``calls`` calls, after one unprofiled
@@ -1454,9 +1538,7 @@ def kernel_busy(fn, calls: int = 2) -> tuple:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        spans = device_spans(prof)
         if spans:
             break
         log("profiler", f"trace {attempt} of {PROFILER_TRIES} holds no "
@@ -1465,14 +1547,7 @@ def kernel_busy(fn, calls: int = 2) -> tuple:
     else:
         raise RuntimeError(f"the profiler saw no kernel on the card in "
                            f"{PROFILER_TRIES} traces")
-    busy, (lo, hi) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy += hi - lo
-            lo, hi = start, end
-        else:
-            hi = max(hi, end)
-    busy += hi - lo
+    busy = union_us(spans)
     ops = sorted(((e.key, _self_device_us(e) / calls / 1e3)
                   for e in prof.key_averages()
                   if e.key.startswith("aten::") and _self_device_us(e) > 0),
@@ -2243,26 +2318,132 @@ def read_log(checkpoint: str) -> list[dict]:
         return [json.loads(line) for line in f]
 
 
+def check_native_decode(csv_path: str, is_test: bool) -> int:
+    """``DepthPairDataset.load_batch`` (the native decoder) against the
+    PIL decode of every pair of a split, bit for bit, at CLI_BATCH;
+    returns the pairs checked."""
+    ours = DepthPairDataset(csv_path, is_test=is_test)
+    pil = DepthPairDataset(csv_path, is_test=is_test, use_native=False)
+    for start in range(0, len(ours), CLI_BATCH):
+        indices = np.arange(start, min(start + CLI_BATCH, len(ours)))
+        batch = ours.load_batch(indices)
+        if batch is None:
+            raise RuntimeError(f"load_batch fell back to PIL on {csv_path}")
+        for k, i in enumerate(indices):
+            for got, want in zip(batch, pil[int(i)]):
+                if got[k].dtype != want.dtype or not np.array_equal(got[k],
+                                                                    want):
+                    raise RuntimeError(
+                        f"native decode of pair {i} of {csv_path} differs "
+                        f"from PIL's: {got[k].dtype} {want.dtype}")
+    return len(ours)
+
+
+def loader_pairs_per_s(csv_path: str, use_native: bool) -> float:
+    """What the CLI's loader alone takes on the train split, host clock:
+    ``batch_iterator`` at CLI_BATCH, a batch through the native decoder or
+    one PIL decode a sample on 4 threads."""
+    t0 = time.perf_counter()
+    decoded = sum(int(b["num_valid"]) for b in batch_iterator(
+        DepthPairDataset(csv_path, use_native=use_native), CLI_BATCH))
+    return decoded / (time.perf_counter() - t0)
+
+
 def phase_cli_data(tmp: str, card: str) -> tuple[str, str, dict]:
     t0 = time.perf_counter()
     train_csv, test_csv = generate_dataset(tmp, CLI_TRAIN_PAIRS,
                                            CLI_TEST_PAIRS)
     seconds = time.perf_counter() - t0
-    # what the loader alone takes: PNG decode and stacking, 4 threads
-    t0 = time.perf_counter()
-    decoded = sum(int(b["num_valid"]) for b in batch_iterator(
-        DepthPairDataset(train_csv), CLI_BATCH))
-    decode_s = time.perf_counter() - t0
     log("11 train", f"{card}: generate_dataset wrote {CLI_TRAIN_PAIRS} "
         f"train and {CLI_TEST_PAIRS} test 480x640 PNG pairs in "
         f"{seconds:.2f} s ({seconds / (CLI_TRAIN_PAIRS + CLI_TEST_PAIRS):.3f}"
-        f" s a pair, one host thread); batch_iterator decodes the train "
-        f"split at {decoded / decode_s:.1f} pairs/s (4 threads, host "
-        "clock)")
-    return train_csv, test_csv, dict(write_s=seconds,
-                                     train_pairs=CLI_TRAIN_PAIRS,
-                                     test_pairs=CLI_TEST_PAIRS,
-                                     decode_pairs_per_s=decoded / decode_s)
+        f" s a pair, one host thread)")
+    out = dict(write_s=seconds, train_pairs=CLI_TRAIN_PAIRS,
+               test_pairs=CLI_TEST_PAIRS)
+    routes = (True, False) if native.is_available() else (False,)
+    if native.is_available():
+        checked = [check_native_decode(train_csv, False),
+                   check_native_decode(test_csv, True)]
+        log("11 train", f"ok: load_batch (native) equals the PIL decode bit "
+            f"for bit on all {checked[0]} train pairs (8-bit depths) and "
+            f"{checked[1]} test pairs (16-bit depths)")
+        out["native_decode_checked_pairs"] = checked
+    else:
+        log("11 train", "the native decoder is not built here: the loader's "
+            "PIL route alone is timed")
+    rates = {("native" if r else "pil"): [] for r in routes}
+    for _ in range(LOADER_REPEATS):
+        for use_native in routes:
+            rates["native" if use_native else "pil"].append(
+                loader_pairs_per_s(train_csv, use_native))
+    log("11 train", f"{card}: batch_iterator decodes the train split at "
+        + "; ".join(f"{k} " + ", ".join(f"{v:.1f}" for v in vs)
+                    for k, vs in rates.items())
+        + f" pairs/s (batch {CLI_BATCH}, host clock; "
+        + ("in turns; native: the C++ thread pool, " if len(routes) == 2
+           else "") + "PIL: 4 threads)")
+    out["decode_pairs_per_s"] = rates
+    return train_csv, test_csv, out
+
+
+@contextlib.contextmanager
+def profiled_train_epochs(record: list):
+    """Trace each training epoch the CLI runs in the block with
+    ``torch.profiler``: its host seconds to a synchronize and the union of
+    its device records, appended to ``record``."""
+    saved = train_app.run_train_epoch
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = saved(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = device_spans(prof)
+        record.append(dict(wall_s=wall, busy_s=union_us(spans) / 1e6
+                           if spans else None, records=len(spans)))
+        return out
+
+    train_app.run_train_epoch = run
+    try:
+        yield
+    finally:
+        train_app.run_train_epoch = saved
+
+
+def cli_routes(argv: list[str], tmp: str, expected: list) -> dict:
+    """The ENB0-HU CLI epoch on each decode route (native, then PIL with
+    the native decoder reported unavailable): once for its images/s (the
+    CLI's own ``training_frame_time``), once under the profiler for the
+    train epoch's device idle share (1 − busy / host time). A trace with
+    no device record is the tracer's loss: traced again, up to
+    PROFILER_TRIES runs."""
+    out = {}
+    for route in ("native", "pil") if native.is_available() else ("pil",):
+        with contextlib.nullcontext() if route == "native" else native_off():
+            path, parts, seconds = run_cli(argv, tmp)
+            check_parts(f"CLI run, {route} decode", parts, expected)
+            rec = read_log(path)[0]
+            for _ in range(PROFILER_TRIES):
+                traced = []
+                with profiled_train_epochs(traced):
+                    run_cli(argv, tmp)
+                if traced[0]["busy_s"] is not None:
+                    break
+                log("profiler", "the CLI epoch's trace holds no device "
+                    "record; running it again")
+            else:
+                raise RuntimeError("the profiler saw no kernel in the CLI's "
+                                   f"epoch in {PROFILER_TRIES} runs")
+        epoch = traced[0]
+        out[route] = dict(
+            images_per_s=1.0 / rec["training_frame_time"], seconds=seconds,
+            traced_images_per_s=CLI_TRAIN_PAIRS / epoch["wall_s"],
+            busy_s=epoch["busy_s"], traced_wall_s=epoch["wall_s"],
+            idle_share=1.0 - epoch["busy_s"] / epoch["wall_s"])
+    return out
 
 
 def phase_cli_enb0_hu(tmp, train_csv, test_csv, frames, card) -> dict:
@@ -2314,6 +2495,7 @@ def phase_cli_enb0_hu(tmp, train_csv, test_csv, frames, card) -> dict:
         raise RuntimeError(f"resume with deterministic cuDNN differs from "
                            f"the uninterrupted run: {resume}")
     nondet = state_diff(state_of["A"], state_of["E"])
+    routes = cli_routes(base + init, tmp, full_run)
 
     records = read_log(runs["A"][0])
     want = {"mae", "mse", "abs_rel", "log10", "delta1", "delta2", "delta3",
@@ -2354,7 +2536,8 @@ def phase_cli_enb0_hu(tmp, train_csv, test_csv, frames, card) -> dict:
         images_per_s=1.0 / rec_e["training_frame_time"],
         peak_gib=rec_e["vram_usage"] / 2**30,
         test_frame_s=rec_e["test_frame_time"],
-        rolling_save_ms=save_ms, rolling_load_ms=load_ms, rolling_mib=mib)
+        rolling_save_ms=save_ms, rolling_load_ms=load_ms, rolling_mib=mib,
+        decode_routes=routes)
     log("11 train", f"{card}: CLI ENB0-HU bf16 batch {CLI_BATCH}, 1 epoch "
         f"of {steps} steps on {CLI_TRAIN_PAIRS} PNG pairs ({INPUT_HW} crop): "
         f"{result['images_per_s']:.1f} images/s with PNG decode and the "
@@ -2368,6 +2551,13 @@ def phase_cli_enb0_hu(tmp, train_csv, test_csv, frames, card) -> dict:
         f"uninterrupted run, deterministic cuDNN: "
         f"{'bit for bit' if exact else resume}; uninterrupted runs with and "
         f"without deterministic cuDNN differ by {nondet}")
+    log("11 train", f"{card}: CLI ENB0-HU epoch by decode route, in turns "
+        "(images/s by the CLI's clock; then under the profiler: images/s, "
+        "the train epoch's device busy s and idle share): " + "; ".join(
+            f"{k} {v['images_per_s']:.1f} images/s; traced "
+            f"{v['traced_images_per_s']:.1f}, busy {v['busy_s']:.3f} of "
+            f"{v['traced_wall_s']:.3f} s, idle share {v['idle_share']:.3f}"
+            for k, v in routes.items()))
     log("11 train", f"{card}: train_state.ede {mib:.1f} MiB: save "
         f"{save_ms:.1f} ms, load onto the card {load_ms:.1f} ms; the best "
         f"checkpoint serves bf16 with {ENB0_HU_LAUNCHES} launches")
@@ -2478,14 +2668,14 @@ def phase_train_policies(card) -> dict:
     return out
 
 
-def phase_rn50_steps(card) -> dict:
-    """11e: RN50-HU and RN50-LR at full width, random weights: bf16 steps at
-    batch 64 with exact launches, a loss that falls on a fixed batch,
-    images/s and peak memory."""
+def phase_random_steps(card) -> dict:
+    """11e: RN50-HU, RN50-LR, DN161-HU and SN154-HU at full width, random
+    weights: bf16 steps at batch 64 with exact launches, a loss that falls
+    on a fixed batch, images/s and peak memory."""
     out = {}
     batch = train_batch(range(TRAIN_BATCH))
     draws = draw_augmentation(torch.Generator().manual_seed(1), TRAIN_BATCH)
-    for name, expected in RN50_STEP_LAUNCHES.items():
+    for name, expected in RANDOM_STEP_LAUNCHES.items():
         model = random_model(name)
         state = create_train_state(model, LR, WEIGHT_DECAY)
         step = make_train_step(mixed_precision=True, device=DEVICE)
@@ -2496,7 +2686,7 @@ def phase_rn50_steps(card) -> dict:
             raise RuntimeError(f"{name} step launches {launches}, expected "
                                f"{expected}")
         losses = [float(metrics["loss"])]
-        for _ in range(FALL_STEPS_RN50):
+        for _ in range(FALL_STEPS_RANDOM):
             _, metrics = step(state, batch, 0, draws=draws)
             losses.append(float(metrics["loss"]))
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -2535,11 +2725,11 @@ def phase_train_cli(frames, card) -> dict:
         hu = phase_cli_enb0_hu(tmp, train_csv, test_csv, frames, card)
         lr = phase_cli_enb0_lr(tmp, train_csv, test_csv, frames, card)
     policies = phase_train_policies(card)
-    rn50 = phase_rn50_steps(card)
+    random_steps = phase_random_steps(card)
     seconds = time.perf_counter() - t0
     log("11 train", f"ok: phase 11 in {seconds:.1f} s")
     return dict(card=card, seconds=seconds, data=data, enb0_hu_cli=hu,
-                enb0_lr_cli=lr, policies=policies, rn50=rn50)
+                enb0_lr_cli=lr, policies=policies, random_steps=random_steps)
 
 
 # Phase 12: the user-centred benchmark (``benchmark.harness.main``) on the
@@ -2583,6 +2773,10 @@ GOLDEN_FLOORS = {("mesh", 0, 4): 0.95, ("mesh", 0, 6): 0.95,
 VISUAL_ATOL, LPIPS_RTOL = 1e-5, 1e-4
 # Depth maps on the card against the port's CPU forward, TF32 off: metres.
 BENCH_DEPTH_ATOL = 1e-3
+# The native MJPEG sweep (libjpeg, quality 90) read back by cv2 against the
+# rendered frames: the JAX package's bound on the mean absolute level
+# (tests/test_native_encoder.py); generate_dataset's scenes sit near 1.
+ENCODE_MEAN_ABS = 5.0
 
 
 def lpips_standin(tmp: str) -> str:
@@ -2961,6 +3155,96 @@ def finite_or_none(obj):
     return obj
 
 
+def read_video(path: str) -> tuple[np.ndarray, str]:
+    """Every frame of a video as cv2 reads it, RGB, and its FourCC."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        code = int(cap.get(cv2.CAP_PROP_FOURCC))
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(frame[:, :, ::-1])
+    finally:
+        cap.release()
+    fourcc = "".join(chr((code >> 8 * i) & 0xFF) for i in range(4))
+    return np.stack(frames), fourcc
+
+
+def bench_encode_routes(data, tmp: str, card: str) -> dict:
+    """The renderer's sweep of every sample (``create_rendered_images``,
+    mesh, fps BENCH_FPS) on the native encode route and on the cv2/PIL
+    route (the native encoder reported unavailable), each's
+    ``render_time``; the stills equal on both, the MJPEG AVI of sample 0
+    read by cv2 with every view, within ENCODE_MEAN_ABS of the frames
+    rendered on the card."""
+    from efficientdepthestimation_tpu_torch.benchmark import renderer
+
+    samples = [data[i] for i in range(len(data))]
+    routes = ("native", "pil") if native_encoder.is_available() else ("pil",)
+    dirs, times = {}, {}
+    for route in routes:
+        dirs[route] = os.path.join(tmp, f"sweep-{route}")
+        with contextlib.nullcontext() if route == "native" else native_off(), \
+                contextlib.redirect_stdout(io.StringIO()):
+            times[route] = renderer.create_rendered_images(
+                dirs[route], samples, fps=BENCH_FPS,
+                device=DEVICE).total_seconds()
+    out = dict(render_time_s=times, samples=len(samples))
+    if "native" in routes:
+        stills = 0
+        for i in range(len(samples)):
+            names = sorted(os.listdir(os.path.join(dirs["pil"], "image",
+                                                   f"{i:06d}")))
+            for name in names:
+                a, b = (read_image(os.path.join(dirs[r], "image", f"{i:06d}",
+                                                name)) for r in routes)
+                if not np.array_equal(a, b):
+                    raise RuntimeError(f"still {i}/{name} differs between "
+                                       "the native and the PIL route")
+            stills += len(names)
+        image, depth01 = renderer.sweep_inputs(samples[0])
+        views = torch.from_numpy(renderer.sweep_views(BENCH_FPS))
+        frames = renderer.render_novel_views_mesh(
+            torch.from_numpy(image).to(DEVICE),
+            torch.from_numpy(depth01).to(DEVICE), views, fov_y_deg=18.0,
+            displacement_factor=4.0, mesh_density=8)
+        frames = (torch.clamp(frames, 0.0, 1.0) * 255.0).to(torch.uint8)
+        frames = frames.cpu().numpy()
+        read, fourcc = read_video(os.path.join(dirs["native"], "video",
+                                               "000000.avi"))
+        if read.shape != frames.shape or fourcc != "MJPG":
+            raise RuntimeError(f"the native sweep video reads as {fourcc} "
+                               f"{read.shape}, rendered {frames.shape}")
+        mae = float(np.abs(read.astype(np.int16) - frames).mean())
+        if not mae < ENCODE_MEAN_ABS:
+            raise RuntimeError(f"the MJPEG sweep is {mae:.3f} levels from "
+                               f"the rendered frames (< {ENCODE_MEAN_ABS})")
+        out.update(stills_equal=stills, mjpeg_frames=len(read),
+                   mjpeg_mean_abs=mae, fourcc=fourcc)
+        log("12 benchmark", f"ok: the native route's {stills} PNG stills "
+            f"equal the PIL route's; sample 0's MJPEG AVI ({fourcc}) reads "
+            f"back in cv2 as {len(read)} views, {mae:.3f} levels from the "
+            f"rendered frames on average (< {ENCODE_MEAN_ABS})")
+    log("12 benchmark", f"{card}: create_rendered_images of {len(samples)} "
+        f"samples x {len(renderer.sweep_views(BENCH_FPS))} views, "
+        "render_time by encode route, in turns: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in times.items())
+        + ("" if "native" in routes else
+           " (the native encoder is not built here)"))
+    return out
+
+
+def read_image(path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img)
+
+
 def phase_benchmark(card) -> dict:
     """12: the user-centred benchmark on the card through
     ``benchmark.harness.main``, checked against the CPU and the golden
@@ -3058,6 +3342,7 @@ def phase_benchmark(card) -> dict:
         visual = bench_visual(out_dir, lpips_path)
         data = DepthDataset(csv_path, transform=nyu_eval_sample(1))
         renders = bench_renders(data, card)
+        encode = bench_encode_routes(data, tmp, card)
         del os.environ["LPIPS_ALEX_WEIGHTS"]
 
     phases = {}
@@ -3081,7 +3366,8 @@ def phase_benchmark(card) -> dict:
                 per_model=per_model, table={m: {
                     k: v for k, v in r.items()} for m, r in rows.items()},
                 depth_max_abs_m=depth_errs, visual=visual,
-                renders=renders, kernels_f32_batch4=timed,
+                renders=renders, encode_routes=encode,
+                kernels_f32_batch4=timed,
                 host_packages=host, plots=plots)
 
 
@@ -3097,6 +3383,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     phase_build()
+    native_info = phase_native_build()
     card = phase_card()
     model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
     dw_sites, up_sites, _ = main_path_sites(model)
@@ -3154,6 +3441,7 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"native": native_info}))
     print(json.dumps({"routes": routes}))
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"apps": apps}))

@@ -5,8 +5,9 @@ Per frame: Scale(640×480) → CenterCrop(608×456) → normalize, then a
 second division by 255 (the reference divides after ToTensor too; kept for
 parity, depth_video.py:100) → model → align-corners upsample to 1920×1440
 → inverse-depth colouring 255/(1+d) → 180-pixel letterbox crop → hstack
-with the LANCZOS-resized colour frame → DIVX video at 24 fps
-(depth_video.py:71-124). On the CUDA card unless ``--device cpu``:
+with the LANCZOS-resized colour frame → video at 24 fps (depth_video.py:71-
+124): MJPEG-in-AVI through the native writer where it is built, as the JAX
+package writes it, else cv2 DIVX. On the CUDA card unless ``--device cpu``:
 
     python -m efficientdepthestimation_tpu_torch.apps.depth_video \\
         -i frames/ -m checkpoints/ENB0-HU.pth -o videos/

@@ -4,7 +4,9 @@
 For each checkpoint of a directory: serve the test split in f32 with the
 depth upsampled to 640×480, clamp above 10 m to 0, and write ×1000 uint16
 PNGs and ÷10000 JPG previews through an asynchronous writer
-(test_nyu.py:19-22,82-94), on the CUDA card unless ``--device cpu``:
+(test_nyu.py:19-22,82-94), with the native encoders where they are built
+(JPEG at libjpeg's quality 90, as the JAX package writes it), on the CUDA
+card unless ``--device cpu``:
 
     python -m efficientdepthestimation_tpu_torch.apps.test_nyu \\
         -c checkpoints/ --test-csv data/test.csv -o nyu_depth_out
@@ -48,17 +50,30 @@ def depth_maps_mm(serve, frames: torch.Tensor) -> np.ndarray:
 
 
 def write_depth(depth_mm: np.ndarray, path: str):
-    """A 16-bit PNG of the depth in mm, truncated to integers."""
+    """A 16-bit PNG of the depth in mm, truncated to integers: libpng where
+    the native encoder is built, else PIL."""
+    from efficientdepthestimation_tpu_torch.native import encoder
+
+    depth16 = depth_mm.astype(np.uint16)
+    if encoder.is_available():
+        return encoder.encode_png(path, depth16)
     from PIL import Image
 
-    Image.fromarray(depth_mm.astype(np.uint16)).save(path)
+    Image.fromarray(depth16).save(path)
 
 
 def write_preview(image: np.ndarray, path: str):
-    """An 8-bit grey preview of ``image`` in [0, 1]."""
+    """An 8-bit grey preview of ``image`` in [0, 1]: a libjpeg JPEG at
+    quality 90 where the native encoder is built, else PIL's (quality
+    75)."""
+    from efficientdepthestimation_tpu_torch.native import encoder
+
+    gray = (image * 255).astype(np.uint8)
+    if encoder.is_available():
+        return encoder.encode_jpeg(path, gray)
     from PIL import Image
 
-    Image.fromarray((image * 255).astype(np.uint8)).save(path)
+    Image.fromarray(gray).save(path)
 
 
 def main(args: Optional[List[str]] = None):

@@ -59,7 +59,7 @@ __all__ = [
     "RotateAxisBounce", "Translate", "Compose", "Axis",
     "reference_camera_animation", "sweep_views",
     "render_novel_views", "render_novel_views_mesh",
-    "render_novel_views_raymarch", "create_rendered_images",
+    "render_novel_views_raymarch", "sweep_inputs", "create_rendered_images",
 ]
 
 # Elements of one (views, points) array of a chunk: 2^24 f32 is 64 MiB.
@@ -589,6 +589,27 @@ RENDERERS = {"mesh": render_novel_views_mesh,
              "splat": render_novel_views}
 
 
+def sweep_inputs(sample: dict, depth=None) -> tuple[np.ndarray, np.ndarray]:
+    """The image in [0, 1] and the depth scaled to [0, 1] that
+    ``create_rendered_images`` renders a sample's sweep from, f32 on the
+    host: ``depth`` (else ``sample['depth']``) resized to the image's size
+    by cubic interpolation where it differs."""
+    import cv2
+
+    image = np.asarray(sample["image"], np.float32)
+    if image.max() > 1.5:
+        image = image / 255.0
+    h, w = image.shape[:2]
+    depth = np.asarray(sample["depth"] if depth is None else depth,
+                       np.float32)
+    depth = np.squeeze(depth)
+    if depth.shape != (h, w):
+        depth = cv2.resize(depth, (w, h), interpolation=cv2.INTER_CUBIC)
+    dmin, dmax = depth.min(), depth.max()
+    depth01 = (depth - dmin) / (dmax - dmin + np.finfo(np.float32).tiny)
+    return image, depth01.astype(np.float32)
+
+
 def create_rendered_images(output_dir: str, image_loader, depth_loader=None,
                            fps: int = 60, mesh_density: int = 8,
                            displacement_factor: float = 4.0,
@@ -612,12 +633,11 @@ def create_rendered_images(output_dir: str, image_loader, depth_loader=None,
     Sample i+1 renders on the device while a thread pool encodes sample i
     (the reference's AsyncImageWriter/AsyncVideoWriter overlap,
     Benchmark/benchmark.py:947-962); the frames are quantized to uint8 on
-    the device and copied to the host inside the encode thread. The JAX
-    package's native MJPEG/PNG encoder is not ported yet (ROADMAP A14):
-    videos are cv2 DIVX and stills PIL PNG, as its fallback writes them.
+    the device and copied to the host inside the encode thread. Where the
+    native encoder is built, as in the JAX package, videos are MJPEG-in-AVI
+    at quality 90 and stills libpng PNGs at zlib level 1 (lossless, so
+    their pixels are those of the PIL route); else cv2 DIVX and PIL PNG.
     """
-    import cv2
-
     from efficientdepthestimation_tpu_torch.apps.common import resolve_device
 
     device = resolve_device(device)
@@ -648,25 +668,11 @@ def create_rendered_images(output_dir: str, image_loader, depth_loader=None,
     def dispatch_render(i):
         """Host-side prep + device render; returns the uint8 frames on the
         device without waiting for them."""
-        sample = samples[i]
-        image = np.asarray(sample["image"], np.float32)
-        if image.max() > 1.5:
-            image = image / 255.0
+        image, depth01 = sweep_inputs(
+            samples[i], None if depths is None else depths[i])
         h, w = image.shape[:2]
-
-        if depths is not None:
-            depth = np.asarray(depths[i], np.float32)
-        else:
-            depth = np.asarray(sample["depth"], np.float32)
-        depth = np.squeeze(depth)
-        if depth.shape != (h, w):
-            depth = cv2.resize(depth, (w, h), interpolation=cv2.INTER_CUBIC)
-        dmin, dmax = depth.min(), depth.max()
-        depth01 = (depth - dmin) / (dmax - dmin + np.finfo(np.float32).tiny)
-
         frames = render(_to_device(image, device),
-                        _to_device(depth01.astype(np.float32), device),
-                        views, **kwargs)
+                        _to_device(depth01, device), views, **kwargs)
         # quantize on the device: 4x less to copy than float32
         return (torch.clamp(frames, 0.0, 1.0) * 255.0).to(torch.uint8), w, h
 
@@ -675,21 +681,30 @@ def create_rendered_images(output_dir: str, image_loader, depth_loader=None,
         dispatch loop. The video lands under a temp name and is renamed only
         after release(), so the per-sample resume cache never trusts a
         truncated file from a mid-encode crash."""
-        from PIL import Image
+        from efficientdepthestimation_tpu_torch.native import encoder as nat
 
         frames_u8 = frames_dev.cpu().numpy()
         sample_frame_dir = os.path.join(frame_dir, f"{i:06d}")
         os.makedirs(sample_frame_dir, exist_ok=True)
         video_path = os.path.join(video_dir, f"{i:06d}.avi")
         tmp_path = os.path.join(video_dir, f".tmp-{i:06d}.avi")
-        writer = cv2.VideoWriter(
-            tmp_path, cv2.VideoWriter_fourcc(*"DIVX"), fps, (w, h))
-        for k, frame in enumerate(frames_u8):
-            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
-            if k >= INITIAL_DELAY and (k - INITIAL_DELAY) % fps == 0:
-                Image.fromarray(frame).save(
-                    os.path.join(sample_frame_dir, f"{k:06d}.png"))
-        writer.release()
+        if nat.is_available():
+            nat.write_mjpeg_avi(tmp_path, frames_u8, fps=fps, quality=90)
+            for k in range(INITIAL_DELAY, len(frames_u8), fps):
+                nat.encode_png(os.path.join(sample_frame_dir, f"{k:06d}.png"),
+                               frames_u8[k], compress_level=1)
+        else:
+            import cv2
+            from PIL import Image
+
+            writer = cv2.VideoWriter(
+                tmp_path, cv2.VideoWriter_fourcc(*"DIVX"), fps, (w, h))
+            for k, frame in enumerate(frames_u8):
+                writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+                if k >= INITIAL_DELAY and (k - INITIAL_DELAY) % fps == 0:
+                    Image.fromarray(frame).save(
+                        os.path.join(sample_frame_dir, f"{k:06d}.png"))
+            writer.release()
         os.replace(tmp_path, video_path)
 
     import concurrent.futures as cf

@@ -5,9 +5,11 @@ Counterpart of ``efficientdepthestimation_tpu/data/datasets.py``. A dataset
 is anything with ``len`` and ``__getitem__`` returning ``(image, depth)``
 arrays (or a lone image): ``DepthPairDataset`` (a PNG/CSV split),
 ``VideoFrameDataset`` (a directory of frames), or an in-memory list such as
-``data.synthetic_nyu.synthetic_train_set``. Files are decoded with PIL,
-imported where a file is read; the JAX package's native C++ batch decoder
-(``load_batch``) is ROADMAP A14. PNG is lossless, so the arrays are the same
+``data.synthetic_nyu.synthetic_train_set``. ``DepthPairDataset`` decodes
+whole batches with the native C++ decoder (``load_batch``, ``native/``)
+where it is built and the files have the split's frame size; otherwise,
+and for the other datasets, files are decoded one by one with PIL,
+imported where a file is read. PNG is lossless, so the arrays are the same
 either way.
 """
 
@@ -48,16 +50,50 @@ class DepthPairDataset:
 
     ``is_test`` names the depth-encoding convention of the split: 16-bit mm
     PNGs for the test split, 8-bit (×25.5/m) PNGs for training
-    (nyu_transform.py:170-175); PIL returns each as stored. ``image_hw`` is
-    the frame size of the split (the native batch decoder of A14 needs it).
-    ``cache_in_ram`` keeps decoded pairs after first touch, so that epochs
-    after the first skip the decode (~1.2 GB per 1000 NYU-sized pairs).
+    (nyu_transform.py:170-175); PIL returns each as stored. With
+    ``use_native`` and the native decoder built, ``load_batch`` decodes a
+    whole batch of files of the size ``image_hw`` on a C++ thread pool;
+    otherwise each sample is decoded with PIL. ``cache_in_ram`` keeps
+    decoded pairs after first touch, so that epochs after the first skip
+    the decode (~1.2 GB per 1000 NYU-sized pairs).
     """
 
     csv_file: str
     is_test: bool = False
+    use_native: bool = True
     image_hw: tuple[int, int] = (480, 640)
     cache_in_ram: bool = False
+
+    def load_batch(self, indices) -> tuple[np.ndarray, np.ndarray] | None:
+        """Decode a whole batch natively; None → caller falls back to PIL."""
+        if self.cache_in_ram:
+            cached = [self._cache.get(int(i)) for i in indices]
+            if all(c is not None for c in cached):
+                return (np.stack([c[0] for c in cached]),
+                        np.stack([c[1] for c in cached]))
+        result = self._load_batch_uncached(indices)
+        if result is not None and self.cache_in_ram:
+            images, depths = result
+            for k, i in enumerate(indices):
+                self._cache[int(i)] = (images[k], depths[k])
+        return result
+
+    def _load_batch_uncached(self, indices):
+        from efficientdepthestimation_tpu_torch import native
+
+        if not self.use_native or not native.is_available():
+            return None
+        h, w = self.image_hw
+        image_paths = [self.rows[int(i)][0] for i in indices]
+        depth_paths = [self.rows[int(i)][1] for i in indices]
+        try:
+            images = native.decode_rgb_batch(image_paths, h, w)
+            depths = native.decode_depth16_batch(depth_paths, h, w)
+        except IOError:
+            return None
+        if not self.is_test:
+            depths = depths.astype(np.uint8)  # train depths are 8-bit PNGs
+        return images, depths
 
     def __post_init__(self):
         root = os.path.dirname(os.path.abspath(self.csv_file))
@@ -119,7 +155,9 @@ def batch_iterator(
     pad_last: bool = False,
     skip_batches: int = 0,
 ) -> Iterator[dict]:
-    """Yield stacked numpy batches, fetching samples on a thread pool.
+    """Yield stacked numpy batches: a whole batch from the dataset's
+    ``load_batch`` where it has one and it returns a batch, else the
+    samples fetched on a thread pool.
 
     ``pad_last`` repeats the final sample so every batch has the same shape;
     the true count is reported as ``num_valid``. ``skip_batches``
@@ -135,6 +173,8 @@ def batch_iterator(
     def fetch(i):
         return dataset[int(i)]
 
+    native_loader = getattr(dataset, "load_batch", None)
+
     with cf.ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
         for start in range(0, len(indices), batch_size):
             chunk = indices[start:start + batch_size]
@@ -146,6 +186,15 @@ def batch_iterator(
                         [chunk, np.repeat(chunk[-1:], batch_size - len(chunk))]
                     )
             num_valid = min(batch_size, len(indices) - start)
+
+            if native_loader is not None:
+                batch = native_loader(chunk)
+                if batch is not None:
+                    images, depths = batch
+                    yield {"image": images, "depth": depths,
+                           "num_valid": num_valid}
+                    continue
+
             samples = list(pool.map(fetch, chunk))
             if isinstance(samples[0], tuple):
                 images = np.stack([s[0] for s in samples])

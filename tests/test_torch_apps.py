@@ -37,6 +37,12 @@ from efficientdepthestimation_tpu_torch.training import train_step as pstep
 DEPTH_RTOL = 1e-5
 COUNT_ATOL = 2 / (228 * 304)
 N_PAIRS, BATCH = 3, 2
+# test_nyu's JPG previews: depths within 1 mm of JAX's may give preview
+# pixels one level apart (1 mm is 0.0255 of a level) at a few pixels. In
+# JPEG such a change can round a quantized DCT coefficient of its 8×8 block
+# to the next step, at most 24 at quality 90 (the tables run 2..24), which
+# moves a decoded pixel by at most 24/4 = 6 levels. The mean stays near 0.
+PREVIEW_ATOL, PREVIEW_MEAN = 6, 0.01
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -228,9 +234,11 @@ def test_evaluate_cli_on_pth_matches_jax(workspace, tmp_path):
 
 
 def test_test_nyu_cli_matches_jax(workspace, tmp_path):
-    """``apps.test_nyu`` at batch 2: the same files, and 16-bit depth PNGs
+    """``apps.test_nyu`` at batch 2: the same files, 16-bit depth PNGs
     equal within 1 mm (a value within rounding of an integer mm may
-    truncate to the other side)."""
+    truncate to the other side), and JPG previews written as the JAX
+    package writes them (libjpeg at quality 90: its quantization tables)
+    whose pixels agree within PREVIEW_ATOL."""
     from PIL import Image
 
     from efficientdepthestimation_tpu.apps import test_nyu as jtest_nyu
@@ -251,6 +259,15 @@ def test_test_nyu_cli_matches_jax(workspace, tmp_path):
         ours = np.asarray(Image.open(our_dir / name))
         assert ours.shape == (480, 640) and ours.max() > 0
         assert np.abs(ours.astype(np.int64) - ref).max() <= 1, name
+    for name in names[::2]:
+        with Image.open(ref_dir / name) as a, Image.open(our_dir / name) as b:
+            assert b.format == a.format == "JPEG"
+            assert b.quantization == a.quantization, name
+            ref, ours = np.asarray(a).astype(np.int64), np.asarray(b)
+        assert ours.shape == (480, 640)
+        err = np.abs(ours - ref)
+        assert err.max() <= PREVIEW_ATOL and err.mean() <= PREVIEW_MEAN, (
+            name, err.max(), err.mean())
     with pytest.raises(NotImplementedError, match="A13"):
         test_nyu.main(argv + ["-o", str(tmp_path / "x"), "--policy", "p.json",
                               "--device", "cpu"])

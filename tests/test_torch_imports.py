@@ -4,7 +4,8 @@ Every module of ``efficientdepthestimation_tpu_torch`` and ``chip_smoke.py``
 is imported in a fresh interpreter, which must then hold no ``jax``, ``flax``
 or ``efficientdepthestimation_tpu`` module, and none of PIL, pandas,
 matplotlib and cv2, which the card's machine lacks: a module that decodes
-or writes images or video imports them where it does so.
+or writes images or video imports them where it does so, as the study
+tooling imports pandas. Importing builds no native library.
 """
 
 import os
@@ -36,7 +37,12 @@ def test_port_imports_no_jax():
                  "checkpoints.lpips_convert", "benchmark",
                  *(f"benchmark.{m}" for m in (
                      "datasets", "depth_model", "harness", "metrics",
-                     "noise", "raster_reference", "renderer"))):
+                     "noise", "raster_reference", "renderer")),
+                 "native", "native.build", "native.loader", "native.encoder",
+                 "utils.colmap_io", "mturk",
+                 *(f"mturk.{m}" for m in (
+                     "collect_study_materials", "process_mturk_results",
+                     "process_mturk_second_round_results", "tum2kf"))):
         assert f"efficientdepthestimation_tpu_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules] + [
@@ -47,6 +53,9 @@ def test_port_imports_no_jax():
             "'efficientdepthestimation_tpu', 'PIL', 'pandas', 'matplotlib', "
             "'cv2'))",
             "assert not bad, bad",
+            "from efficientdepthestimation_tpu_torch.native import encoder, "
+            "loader",
+            "assert encoder._LIBRARY._lib is None is loader._LIBRARY._lib",
             "print('clean', len(sys.modules))",
         ])
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

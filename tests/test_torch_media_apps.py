@@ -201,7 +201,9 @@ def test_depth_video_matches_jax(fmt, workspace, checkpoints, tmp_path,
                                  monkeypatch):  # noqa: F811
     """The frames each package hands its video writer (captured at
     ``AsyncVideoWriter.submit``): the colour half equal, the depth half
-    within one level; the port's file holds them all at 3840×1080."""
+    within one level; the port's file holds them all at 3840×1080, in the
+    JAX package's container and codec (the native MJPEG-in-AVI writer,
+    FourCC ``MJPG``)."""
     import cv2
 
     from efficientdepthestimation_tpu.apps import depth_video as jvideo
@@ -237,11 +239,28 @@ def test_depth_video_matches_jax(fmt, workspace, checkpoints, tmp_path,
         assert cap.get(cv2.CAP_PROP_FRAME_HEIGHT) == 1080
     finally:
         cap.release()
+    assert _fourcc(out) == _fourcc(str(tmp_path / "j" / "RN18-HU.mp4")) \
+        == "MJPG"
+
+
+def _fourcc(path: str) -> str:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        code = int(cap.get(cv2.CAP_PROP_FOURCC))
+    finally:
+        cap.release()
+    return "".join(chr((code >> 8 * i) & 0xFF) for i in range(4))
 
 
 def test_video_writer_orders_frames_and_defers_native(tmp_path):
-    """Frames submitted out of order are written in index order; the
-    native writer names ROADMAP A14."""
+    """Frames submitted out of order are written in index order; with
+    ``native=True`` they go to the native MJPEG-in-AVI writer (BGR frames
+    swapped to RGB), whose file cv2 reads back in that order, and
+    ``native=False`` defers to cv2's writer with the given fourcc."""
+    import cv2
+
     from efficientdepthestimation_tpu_torch.utils.async_writer import (
         AsyncVideoWriter,
     )
@@ -255,16 +274,42 @@ def test_video_writer_orders_frames_and_defers_native(tmp_path):
         def release(self):
             written.append("released")
 
-    with AsyncVideoWriter(str(tmp_path / "v.avi"), (8, 4)) as video:
+    with AsyncVideoWriter(str(tmp_path / "v.avi"), (8, 4),
+                          native=False) as video:
         video.writer.release()
         video.writer = Recorder()
+        video._write = video.writer.write
         for i in (2, 0, 3, 1):
             video.submit(np.full((4, 8, 3), i, np.uint8), index=i)
         assert written == [0, 1, 2, 3]
         video.submit(np.full((4, 8, 3), 9, np.uint8), index=9)
     assert written == [0, 1, 2, 3, 9, "released"]
-    with pytest.raises(NotImplementedError, match="A14"):
-        AsyncVideoWriter(str(tmp_path / "w.avi"), (8, 4), native=True)
+
+    # BGR frames: blue rises with the index, red falls, green is constant
+    path = str(tmp_path / "n.avi")
+    levels = (40, 90, 140, 190, 240)
+    with AsyncVideoWriter(path, (48, 32), fps=24.0, native=True) as video:
+        for i in (3, 1, 0, 4, 2):
+            video.submit(np.broadcast_to(np.array(
+                [levels[i], 128, 280 - levels[i]], np.uint8),
+                (32, 48, 3)).copy(), index=i)
+    assert _fourcc(path) == "MJPG"
+    cap = cv2.VideoCapture(path)
+    try:
+        assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 5
+        assert cap.get(cv2.CAP_PROP_FPS) == pytest.approx(24.0)
+        read = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            read.append(frame.reshape(-1, 3).mean(0))
+    finally:
+        cap.release()
+    assert len(read) == 5
+    for got, level in zip(read, levels):
+        # flat colours through JPEG at quality 90: within 4 levels
+        np.testing.assert_allclose(got, [level, 128, 280 - level], atol=4)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
