@@ -3,7 +3,7 @@
 the route of each Hu2018 decoder site timed both ways, serving of the other
 released configurations and of DN161-HU and SN154-HU, evaluation,
 reference ``.pth`` checkpoints served and run through the apps, the
-training CLI and the user-centred benchmark.
+training CLI, the user-centred benchmark and the data-parallel mesh.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -136,10 +136,30 @@ Phases, one output line each (more for the per-site detail):
      the cv2/PIL route, each's ``render_time``, the stills equal on both,
      the AVI read back by cv2 with every view and within ENCODE_MEAN_ABS
      of the rendered frames. Without matplotlib on the machine,
-     ``visualise_results`` is left out, and the phase says so.
+     ``visualise_results`` is left out, and the phase says so;
+ 13. parallelism (``parallel``): an NCCL process group of one rank (its
+     ``all_reduce`` checked), and on its mesh ENB0-HU from its ``.ede``:
+     a bf16 step at batch 64 with exact launches, images/s and device idle
+     share beside the mesh-less step's (in turns); an f32 step at batch 8
+     with deterministic cuDNN and drop-connect on, bit for bit the
+     mesh-less step; three ZeRO-1 steps whose Adam moments equal plain
+     Adam's bit for bit; a ZeRO-1 train state saved, loaded into a plain
+     state, and the next step of each bit for bit; mesh serving of phase
+     4's frames, bit for bit the mesh-less call with 16 + 5 launches. Then
+     two processes share the card over gloo with CUDA tensors (NCCL refuses
+     two ranks on one device), each launched as ``chip_smoke.py
+     --parallel-rank R`` with a ``file://`` store: an f32 step at batch 8
+     (4 a rank, drop-connect on) against the one-process step on the whole
+     batch, within ``PARALLEL_TOL``; then bf16 at batch 64 (32 a rank),
+     images/s of the global batch and the milliseconds each kind of
+     collective takes (BN statistics, gradient buckets, metrics), and the
+     training CLI's epoch loop (``apps.train.run_train_epoch``: its
+     loader, prefetch, metrics read one step behind and the stop flag
+     reduced on the host at every step boundary) a step beside the bare
+     step's, with the flag's reduction alone.
 
 It prints a JSON line of the native libraries' build, a JSON line of the
-routes' times, a JSON line of the evaluation
+parallelism figures, a JSON line of the routes' times, a JSON line of the evaluation
 figures, a JSON line of the ``.pth`` and app figures, a JSON line of the
 training CLI's figures, a JSON line of the benchmark's figures, a JSON line
 of per-configuration figures, the card's name and power limit, a JSON line
@@ -152,6 +172,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import functools
 import io
 import json
@@ -165,6 +186,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
@@ -266,6 +288,12 @@ from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
+from efficientdepthestimation_tpu_torch.parallel import (
+    create_mesh,
+    maybe_initialize_distributed,
+    process_local_rows,
+)
+from efficientdepthestimation_tpu_torch.parallel.mesh import any_rank
 from efficientdepthestimation_tpu_torch.training.metrics import (
     depth_metrics_batch,
 )
@@ -3371,10 +3399,433 @@ def phase_benchmark(card) -> dict:
                 host_packages=host, plots=plots)
 
 
+# Phase 13: parallelism. Two ranks share the card over gloo (NCCL refuses
+# two ranks on one device); their f32 step at CHECK_BATCH is held against
+# the one-process step on the whole batch: the loss and metrics to rtol
+# ``metrics``, the gradients to ``grad`` of their norm, the BN statistics
+# to ``stats`` relative (floor 1e-3), each weight within Adam's largest
+# update difference (2·LR) of the other. The gradients differ by 2.2e-5
+# of their norm on the CPU (tests/test_torch_multiprocess.py) and by
+# 6.9e-4 on the card, where cuDNN's deterministic algorithms for 4 images
+# and for 8 sum in other orders.
+PARALLEL_TOL = dict(metrics=1e-5, grad=1e-3, stats=1e-4)
+PARALLEL_WORLD, PARALLEL_TIMEOUT_S = 2, 300
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def state_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(v, b[k])
+                                        for k, v in a.items())
+
+
+def f32_step(mesh, model, batch, **kw) -> dict:
+    """One f32 step of ``model`` (in place) on ``batch`` (the rank's rows
+    under a mesh of several): metrics, gradients and the model's state."""
+    state = create_train_state(model, LR, WEIGHT_DECAY, mesh=mesh, **kw)
+    step = make_train_step(device=DEVICE, mesh=mesh)
+    state, metrics = step(state, batch, 5)
+    return dict(state=state, metrics={k: float(v) for k, v in
+                                      metrics.items()},
+                grads={n: p.grad.clone() for n, p in
+                       model.named_parameters()},
+                weights={k: v.clone() for k, v in model.state_dict().items()})
+
+
+def parallel_step_rate(mesh, card) -> dict:
+    """13a: the bf16 step at TRAIN_BATCH on the mesh of one rank: exact
+    launches, and images/s beside the mesh-less step's, in turns (plain,
+    mesh, mesh, plain); the mesh step's device idle share."""
+    batch = train_batch(range(TRAIN_BATCH))
+    draws = draw_augmentation(torch.Generator().manual_seed(1), TRAIN_BATCH)
+    runs = {}
+    for label, m in (("plain", None), ("mesh", mesh)):
+        model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+        runs[label] = (create_train_state(model, LR, WEIGHT_DECAY, mesh=m),
+                       make_train_step(mixed_precision=True, device=DEVICE,
+                                       mesh=m))
+    state, step = runs["mesh"]
+    for c in KERNEL_COUNTERS.values():
+        c.launches = 0
+    step(state, batch, 0, draws=draws)
+    launches = launches_since(dict.fromkeys(KERNEL_COUNTERS, 0))
+    if launches != TRAIN_STEP_LAUNCHES["none"]:
+        raise RuntimeError(f"mesh step launches {launches}, expected "
+                           f"{TRAIN_STEP_LAUNCHES['none']}")
+    rates = {"plain": [], "mesh": []}
+    for label in ("plain", "mesh", "mesh", "plain"):
+        rates[label].append(timed_steps(*runs[label], batch,
+                                        draws)["images_per_s"])
+    busy_ms, _, _ = kernel_busy(lambda: step(state, batch, 0, draws=draws))
+    step_ms = 1e3 * TRAIN_BATCH / float(np.mean(rates["mesh"]))
+    out = dict(launches=launches, images_per_s=rates,
+               busy_ms=busy_ms, step_ms=step_ms,
+               idle_share=1 - busy_ms / step_ms)
+    log("13 parallel", f"{card}: mesh (1 rank, NCCL) bf16 step at batch "
+        f"{TRAIN_BATCH}: launches {launches}; images/s mesh "
+        + ", ".join(f"{v:.1f}" for v in rates["mesh"]) + " against plain "
+        + ", ".join(f"{v:.1f}" for v in rates["plain"])
+        + f" (plain, mesh, mesh, plain); kernels busy {busy_ms:.2f} of "
+        f"{step_ms:.2f} ms, idle share {out['idle_share']:.3f}")
+    return out
+
+
+def parallel_exact(mesh, card) -> dict:
+    """13b-d: f32 at CHECK_BATCH with deterministic cuDNN and drop-connect
+    on: the mesh step bit for bit the plain one; three ZeRO-1 steps with
+    plain Adam's moments; a ZeRO-1 train state loaded into a plain state,
+    the next step of each bit for bit."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = train_batch(range(CHECK_BATCH))
+        models = [load_any_checkpoint(CHECKPOINT, device=DEVICE)
+                  for _ in range(2)]
+        if not models[0].E.drop_connect_rate > 0:
+            raise RuntimeError("drop-connect is off")
+        plain, meshed = (f32_step(m, model, batch) for m, model in
+                         ((None, models[0]), (mesh, models[1])))
+        if not (plain["metrics"] == meshed["metrics"]
+                and state_equal(plain["grads"], meshed["grads"])
+                and state_equal(plain["weights"], meshed["weights"])):
+            raise RuntimeError("the mesh f32 step differs from the plain "
+                               "one")
+        # ZeRO-1 (every moment on rank 0 in a world of one) against plain
+        # Adam, three steps each
+        states = {}
+        for label, kw in (("plain", {}), ("zero1", {"zero1": True})):
+            model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+            state = create_train_state(model, LR, WEIGHT_DECAY, mesh=mesh,
+                                       **kw)
+            step = make_train_step(device=DEVICE, mesh=mesh)
+            for _ in range(3):
+                state, _ = step(state, batch, 5)
+            states[label] = (state, step)
+        moments = 0
+        for (_, p), (_, q) in zip(states["plain"][0].trained(),
+                                  states["zero1"][0].trained()):
+            a = states["plain"][0].optimizer.state[p]
+            b = states["zero1"][0].optimizer.state[q]
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(a[key], b[key]):
+                    raise RuntimeError(f"ZeRO-1 Adam {key} differs")
+            moments += 2
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "zero1.ede")
+            save_train_state(path, states["zero1"][0],
+                             encoder="efficientnet-b0", decoder="hu2018",
+                             epoch=0, step_in_epoch=3)
+            loaded, _ = load_train_state(path, create_train_state(
+                load_any_checkpoint(CHECKPOINT, device=DEVICE), LR,
+                WEIGHT_DECAY))
+        nxt = {}
+        for label, (state, step) in (("zero1", states["zero1"]),
+                                     ("loaded", (loaded, make_train_step(
+                                         device=DEVICE)))):
+            state, _ = step(state, batch, 5)
+            nxt[label] = state.model.state_dict()
+        if not state_equal(nxt["zero1"], nxt["loaded"]):
+            raise RuntimeError("the ZeRO-1 state's next step differs once "
+                               "loaded into a plain state")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("13 parallel", f"{card}: f32 at batch {CHECK_BATCH}, deterministic "
+        "cuDNN, drop-connect on: the mesh step bit for bit the plain one "
+        f"(loss {plain['metrics']['loss']:.6f}); 3 ZeRO-1 steps: all "
+        f"{moments} Adam moments and the counts bit for bit plain Adam's; "
+        "the ZeRO-1 train state loaded into a plain state takes the next "
+        "step bit for bit")
+    return dict(f32_loss=plain["metrics"]["loss"], zero1_moments=moments)
+
+
+def parallel_serve(mesh, frames, card) -> dict:
+    """13e: mesh serving of phase 4's frames: 16 + 5 launches, bit for bit
+    the mesh-less call."""
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    kw = dict(upsample_to=FRAME_HW, dtype=torch.bfloat16, preprocess=True)
+    ref = make_serving_fn(model, device=DEVICE, **kw)(frames)
+    out, launches = serve_counted(make_serving_fn(model, mesh=mesh, **kw),
+                                  frames, "ENB0-HU mesh", ENB0_HU_LAUNCHES)
+    if not torch.equal(out, ref):
+        raise RuntimeError("mesh serving differs from the mesh-less call")
+    log("13 parallel", f"mesh serving of {frames.shape[0]} frames: launches "
+        f"{launches}, bit for bit the mesh-less call")
+    return dict(launches=launches)
+
+
+def collective_ms(fn) -> dict:
+    """One ``fn()`` with every ``all_reduce`` and ``broadcast`` timed on the
+    host clock between two synchronizes, by kind: gradient buckets (at
+    least 2^16 elements), metric sums (10) and BN statistics (the rest)."""
+    spent = {}
+    saved = dist.all_reduce, dist.broadcast
+
+    def timed(collective):
+        def call(tensor, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = collective(tensor, *args, **kwargs)
+            torch.cuda.synchronize()
+            n = tensor.numel()
+            kind = ("gradients" if n >= 1 << 16 else "metrics" if n == 10
+                    else "batchnorm")
+            entry = spent.setdefault(kind, {"calls": 0, "ms": 0.0})
+            entry["calls"] += 1
+            entry["ms"] += 1e3 * (time.perf_counter() - t0)
+            return result
+        return call
+
+    dist.all_reduce, dist.broadcast = timed(saved[0]), timed(saved[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spent["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    finally:
+        dist.all_reduce, dist.broadcast = saved
+    return spent
+
+
+def parallel_rank(argv: list[str]) -> None:
+    """One of two processes sharing the card over gloo (13f): an f32 step
+    at CHECK_BATCH, then bf16 steps at TRAIN_BATCH, on its rows; results to
+    the directory ``argv[1]``."""
+    rank, tmp = int(argv[0]), argv[1]
+    if not maybe_initialize_distributed(device=DEVICE, backend="gloo"):
+        raise RuntimeError("no process group from the environment")
+    mesh = create_mesh(device=f"{DEVICE}:0", backend="gloo")
+
+    def local_batch(n: int) -> dict:
+        """This rank's rows of ``train_batch(range(n))``, rendering only
+        those (row i is scene i), with the global batch's ``num_valid``."""
+        rows = process_local_rows(mesh, n)
+        return {**train_batch(rows.tolist()), "num_valid": n}
+
+    torch.backends.cudnn.deterministic = True
+    got = f32_step(mesh, load_any_checkpoint(CHECKPOINT, device=DEVICE),
+                   local_batch(CHECK_BATCH))
+    if rank == 0:
+        torch.save({k: got[k] if k == "metrics" else
+                    {n: v.cpu() for n, v in got[k].items()}
+                    for k in ("metrics", "grads", "weights")},
+                   os.path.join(tmp, "f32.pt"))
+    torch.backends.cudnn.deterministic = False
+
+    batch = local_batch(TRAIN_BATCH)
+    draws = draw_augmentation(torch.Generator().manual_seed(1), TRAIN_BATCH)
+    state = create_train_state(load_any_checkpoint(CHECKPOINT, device=DEVICE),
+                               LR, WEIGHT_DECAY, mesh=mesh)
+    step = make_train_step(mixed_precision=True, device=DEVICE, mesh=mesh)
+    before = all_launches()
+    step(state, batch, 0, draws=draws)
+    launches = launches_since(before)
+    for _ in range(POLICY_WARMUP):
+        step(state, batch, 0, draws=draws)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(POLICY_ITERS):
+        step(state, batch, 0, draws=draws)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    collectives = collective_ms(lambda: step(state, batch, 0, draws=draws))
+    epoch = cli_epoch(mesh, state, step, batch)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(launches=launches, seconds=dt, steps=POLICY_ITERS,
+                       collectives=collectives, epoch=epoch,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30),
+                  f)
+    dist.destroy_process_group()
+
+
+class HeldRows:
+    """A rank's rows of a batch held on the host as a dataset of
+    ``length`` rows: global row i is held row i mod n, and ``load_batch``
+    is a gather standing in for the decode."""
+
+    def __init__(self, batch: dict, length: int):
+        self.image = batch["image"].cpu().numpy()
+        self.depth = batch["depth"].cpu().numpy()
+        self.length = length
+
+    def __len__(self):
+        return self.length
+
+    def load_batch(self, indices):
+        at = np.asarray(indices) % len(self.image)
+        return self.image[at], self.depth[at]
+
+
+def cli_epoch(mesh, state, step, batch) -> dict:
+    """The training CLI's epoch loop (``run_train_epoch``) over
+    POLICY_ITERS global batches of TRAIN_BATCH from the rank's rows held on
+    the host, ms a step; and ``any_rank`` (the stop flag's reduction at
+    each step boundary) alone, ms a call."""
+    data = HeldRows(batch, TRAIN_BATCH * POLICY_ITERS)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_app.run_train_epoch(state, step, data, TRAIN_BATCH, 0, 0,
+                                  device=DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    epoch_ms = 1e3 * (time.perf_counter() - t0) / POLICY_ITERS
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        any_rank(False, mesh)
+    return dict(epoch_step_ms=epoch_ms,
+                any_rank_ms=10 * (time.perf_counter() - t0))
+
+
+def launch_ranks(tmp: str) -> None:
+    """``chip_smoke.py --parallel-rank R`` for each rank, joined by a
+    ``file://`` store in ``tmp``; a rank that fails ends the others, and
+    each rank's log tail is printed before this raises."""
+    env = dict(os.environ, EDE_COORDINATOR_ADDRESS=f"file://{tmp}/store",
+               EDE_NUM_PROCESSES=str(PARALLEL_WORLD), EDE_DIST_TIMEOUT="120")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        env.pop(key, None)
+    logs = [open(os.path.join(tmp, f"log{r}.txt"), "w")
+            for r in range(PARALLEL_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), tmp], env={**env, "EDE_PROCESS_ID": str(r)},
+        stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+        for r in range(PARALLEL_WORLD)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.returncode
+                                                  for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    if any(p.returncode for p in procs):
+        for r in range(PARALLEL_WORLD):
+            with open(os.path.join(tmp, f"log{r}.txt")) as f:
+                print(f"--- rank {r} (exit {procs[r].returncode}) ---\n"
+                      + f.read()[-4000:], file=sys.stderr)
+        raise RuntimeError("two ranks on one card over gloo failed: "
+                           + ", ".join(f"rank {r} exit {p.returncode}"
+                                       for r, p in enumerate(procs)))
+
+
+def parallel_two_ranks(card) -> dict:
+    """13f: two processes on the one card over gloo with CUDA tensors."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_ranks(tmp)
+        got = torch.load(os.path.join(tmp, "f32.pt"), weights_only=False)
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(PARALLEL_WORLD)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = f32_step(None, load_any_checkpoint(CHECKPOINT, device=DEVICE),
+                       train_batch(range(CHECK_BATCH)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    metrics = max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in ref["metrics"].items() if v == v)
+    num = sum(float((got["grads"][k].to(DEVICE) - g).double().square()
+                    .sum()) for k, g in ref["grads"].items())
+    den = sum(float(g.double().square().sum())
+              for g in ref["grads"].values())
+    grad = (num / den) ** 0.5
+    stats = weights = 0.0
+    for key, value in ref["weights"].items():
+        diff = (got["weights"][key].to(DEVICE) - value).abs()
+        if "running" in key:
+            stats = max(stats, float((diff / value.abs().clamp(min=1e-3))
+                                     .max()))
+        else:
+            weights = max(weights, float(diff.max()))
+    errs = dict(metrics=metrics, grad=grad, stats=stats)
+    if any(not errs[k] <= PARALLEL_TOL[k] for k in errs) or \
+            not weights <= 2 * LR * 1.001:
+        raise RuntimeError(f"two ranks' f32 step vs one process: {errs}, "
+                           f"weights {weights} (tolerances {PARALLEL_TOL}, "
+                           f"2·LR)")
+    for r in ranks:
+        if tuple(r["launches"]) != TRAIN_STEP_LAUNCHES["none"]:
+            raise RuntimeError(f"a rank's step launched {r['launches']}")
+    slowest = max(r["seconds"] for r in ranks)
+    rate = TRAIN_BATCH * POLICY_ITERS / slowest
+    log("13 parallel", f"{card}: 2 ranks over gloo on one card, f32 at "
+        f"batch {CHECK_BATCH} ({CHECK_BATCH // 2} a rank) against one "
+        f"process: worst relative errors {errs} within {PARALLEL_TOL}, "
+        f"weights within {weights:.3g} (<= 2·LR); bf16 at batch "
+        f"{TRAIN_BATCH}: {rate:.1f} images/s of the global batch (slowest "
+        f"rank, {1e3 * slowest / POLICY_ITERS:.1f} ms a step), launches a "
+        f"rank {ranks[0]['launches']}; collectives of one step, ms (calls): "
+        + "; ".join(f"rank {i} " + ", ".join(
+            f"{k} {v['ms']:.1f} ({v['calls']})" for k, v in
+            r["collectives"].items() if k != "step_ms")
+            + f" of {r['collectives']['step_ms']:.1f}"
+            for i, r in enumerate(ranks))
+        + "; the CLI's epoch loop, ms a step (bare step; any_rank ms): "
+        + "; ".join(f"rank {i} {r['epoch']['epoch_step_ms']:.1f} "
+                    f"({1e3 * r['seconds'] / r['steps']:.1f}; "
+                    f"{r['epoch']['any_rank_ms']:.3f})"
+                    for i, r in enumerate(ranks)))
+    return dict(f32=errs, f32_weights_max_abs=weights,
+                images_per_s=rate, ranks=ranks)
+
+
+def phase_parallel(frames, card) -> dict:
+    """13: the data-parallel mesh (see the module docstring)."""
+    t0 = time.perf_counter()
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = create_mesh(backend="nccl")
+        t = torch.arange(4.0, device=DEVICE)
+        dist.all_reduce(t)
+        if mesh.distributed or not torch.equal(
+                t, torch.arange(4.0, device=DEVICE)):
+            raise RuntimeError(f"NCCL world of one: {mesh}, all_reduce {t}")
+        log("13 parallel", f"NCCL process group of one rank: mesh "
+            f"{mesh.shape} on {mesh.device}, all_reduce checked")
+        out = dict(step=parallel_step_rate(mesh, card),
+                   exact=parallel_exact(mesh, card),
+                   serve=parallel_serve(mesh, frames, card))
+    finally:
+        dist.destroy_process_group()
+        for key in ("MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(key)
+    out["two_ranks"] = parallel_two_ranks(card)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card
+    log("13 parallel", f"ok: phase 13 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if "--parallel-rank" in sys.argv:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        parallel_rank(sys.argv[sys.argv.index("--parallel-rank") + 1:])
+        return 0
     # The training CLI's run logger takes wandb when it imports: local
     # files only.
     os.environ["WANDB_MODE"] = "disabled"
@@ -3414,6 +3865,7 @@ def main() -> int:
     apps = phase_pth_apps(frames, card)
     training = phase_train_cli(frames, card)
     benchmark = phase_benchmark(card)
+    parallel = phase_parallel(frames, card)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -3442,6 +3894,7 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
     print(json.dumps({"native": native_info}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"routes": routes}))
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"apps": apps}))

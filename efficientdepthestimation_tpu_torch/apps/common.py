@@ -32,6 +32,10 @@ from efficientdepthestimation_tpu_torch.models.registry import (
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
+from efficientdepthestimation_tpu_torch.parallel.mesh import (
+    SPATIAL_NOT_PORTED,
+    data_sharding,
+)
 
 __all__ = ["resolve_device", "infer_arch_from_path", "load_any_checkpoint",
            "make_infer_fn", "make_serving_fn"]
@@ -91,7 +95,8 @@ def load_any_checkpoint(path: str, model: nn.Module | None = None, *,
 
 
 def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
-                  preprocess: bool = False, device=None):
+                  preprocess: bool = False, device=None, mesh=None,
+                  spatial: bool = False, local_rows: bool = False):
     """Forward on a copy of ``model`` cast to ``dtype`` on ``device``.
 
     The returned fn takes NHWC images on any device: normalized f32 images,
@@ -99,14 +104,32 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     ``eval_preprocess_image_only`` first. It returns f32 NHWC depth,
     upsampled to ``upsample_to`` (H, W) when given. As in the JAX package,
     ``dtype`` casts every floating-point weight, bias and statistic.
+
+    ``mesh`` (a ``parallel.Mesh``; its device unless ``device`` is given):
+    data-parallel serving, the model replicated on every rank. The fn takes
+    the whole batch, which the data axis must divide, and each rank
+    forwards its rows (``parallel.data_sharding``); the output holds those
+    rows and stays on the rank, as JAX's comes back sharded the same way.
+    In a world of one that is the whole batch. With ``local_rows=True`` the
+    fn takes this rank's rows alone, as
+    ``parallel.distributed_batch_iterator`` decodes them, and forwards them
+    as they are. ``spatial=True`` (image
+    rows across ranks) raises: ROADMAP A11b.
     """
+    if spatial:
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    if device is None and mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     model = copy.deepcopy(model).to(device).eval()
     if dtype is not None:
         model = model.to(dtype)
+    sharding = None if mesh is None or local_rows else data_sharding(mesh)
 
     @torch.inference_mode()
     def infer(images) -> torch.Tensor:
+        if sharding is not None:
+            images = images[sharding.rows(images.shape[0])]
         images = torch.as_tensor(images).to(device)
         if preprocess:
             images = eval_preprocess_image_only(images)
@@ -121,7 +144,8 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
 
 
 def make_serving_fn(model: nn.Module, *, upsample_to=None, dtype=None,
-                    preprocess: bool = False, device=None):
+                    preprocess: bool = False, device=None, mesh=None,
+                    spatial: bool = False, local_rows: bool = False):
     """The serving pipeline every app routes through, with the JAX
     package's defaults: normalized f32 NHWC images in, f32 depth at the
     model's output size out, the model in its own dtype. A deployment that
@@ -129,6 +153,8 @@ def make_serving_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     ``upsample_to=(480, 640)`` (depth at frame size) and
     ``dtype=torch.bfloat16``. The JAX package chooses among staged, tiled
     and int8 forms here; the port has the monolithic form only (ROADMAP
-    A13)."""
+    A13). ``mesh``, ``spatial`` and ``local_rows`` as in
+    ``make_infer_fn``."""
     return make_infer_fn(model, upsample_to=upsample_to, dtype=dtype,
-                         preprocess=preprocess, device=device)
+                         preprocess=preprocess, device=device, mesh=mesh,
+                         spatial=spatial, local_rows=local_rows)

@@ -12,6 +12,13 @@ card unless ``--device cpu``:
 
     python -m efficientdepthestimation_tpu_torch.apps.inference_benchmark \\
         -c checkpoints/ -f frames/ -n 5 -b 8 --bf16
+
+``--data-parallel`` serves over a data-parallel mesh, one process a card,
+under a launcher (``torchrun --nproc-per-node N -m ... --data-parallel``):
+each rank decodes and forwards only its rows of every batch (``-b`` is the
+global batch, which the ranks must divide), and rank 0 reports the slowest
+rank's times and writes the summary. ``--spatial`` (image rows across
+cards) is not ported: ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from efficientdepthestimation_tpu_torch.apps.common import (
     load_any_checkpoint,
@@ -32,6 +40,15 @@ from efficientdepthestimation_tpu_torch.apps.common import (
 from efficientdepthestimation_tpu_torch.data.datasets import (
     VideoFrameDataset,
     batch_iterator,
+)
+from efficientdepthestimation_tpu_torch.parallel import (
+    create_mesh,
+    distributed_batch_iterator,
+    maybe_initialize_distributed,
+)
+from efficientdepthestimation_tpu_torch.parallel.mesh import (
+    SPATIAL_NOT_PORTED,
+    all_reduce_,
 )
 from efficientdepthestimation_tpu_torch.utils.profiling import peak_memory
 from efficientdepthestimation_tpu_torch.utils.timer import Timer
@@ -46,12 +63,25 @@ SUMMARY_COLUMNS = tuple((f, s) for f in TIMES for s in ("mean", "std")) + (
     ("memory_source", "first"),)
 
 
+def _batches(dataset, batch_size: int, mesh):
+    """The frames in batches of ``batch_size``, the last one padded: under a
+    mesh of several ranks this rank's rows of each, decoding only those
+    (``distributed_batch_iterator``)."""
+    if mesh is not None and mesh.distributed:
+        return distributed_batch_iterator(dataset, batch_size, mesh,
+                                          pad_last=True)
+    return batch_iterator(dataset, batch_size, pad_last=True)
+
+
 def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
-                         bf16: bool = False, device=None):
+                         bf16: bool = False, device=None, mesh=None):
     """One trial: ``(load, first call, inference)`` as ``timedelta``s, and
     ``(peak bytes, source)`` of ``utils.profiling.peak_memory``, for the
     frames of ``dataset`` (uint8 images) served by the checkpoint on
-    ``device`` (the CUDA card unless ``"cpu"``)."""
+    ``device`` (the CUDA card unless ``"cpu"``; the mesh's device under
+    ``mesh``, where each rank decodes and serves its rows of each batch)."""
+    if device is None and mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     loading_timer = Timer()
     with loading_timer:
@@ -59,12 +89,12 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
 
     # The first call, timed on its own, keeps any one-time cost (kernel
     # builds, cuDNN's algorithm search) out of the steady inference time.
-    first_batch = next(iter(batch_iterator(dataset, batch_size,
-                                           pad_last=True)))
+    first_batch = next(iter(_batches(dataset, batch_size, mesh)))
     frames = torch.from_numpy(first_batch["image"])
     infer = make_serving_fn(model, upsample_to=tuple(frames.shape[1:3]),
                             dtype=torch.bfloat16 if bf16 else None,
-                            preprocess=True, device=device)
+                            preprocess=True, device=device, mesh=mesh,
+                            local_rows=True)
     first_call_timer = Timer()
     with first_call_timer:
         float(infer(frames).sum())  # a host read waits for the device
@@ -72,7 +102,7 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
     inference_timer = Timer()
     last = None
     with inference_timer:
-        for batch in batch_iterator(dataset, batch_size, pad_last=True):
+        for batch in _batches(dataset, batch_size, mesh):
             last = infer(torch.from_numpy(batch["image"]))
         if last is not None:
             float(last.sum())
@@ -83,20 +113,28 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
 
 
 def benchmark_row(dataset, model_path: str, trial: int, batch_size: int = 8,
-                  bf16: bool = False, device=None) -> dict:
+                  bf16: bool = False, device=None, mesh=None) -> dict:
     """One trial of ``benchmark_checkpoint`` as a row of the summary's
     input: seconds, the frame time over the dataset, memory and its
-    source."""
+    source. Under a mesh of several ranks each figure is the slowest (the
+    largest) rank's, on every rank."""
     load_t, first_t, infer_t, peak, mem_source = benchmark_checkpoint(
-        dataset, model_path, batch_size, bf16=bf16, device=device)
+        dataset, model_path, batch_size, bf16=bf16, device=device, mesh=mesh)
+    times = [load_t.total_seconds(), first_t.total_seconds(),
+             infer_t.total_seconds(), float(peak)]
+    if mesh is not None and mesh.distributed:
+        times = all_reduce_(torch.tensor(times, dtype=torch.float64,
+                                         device=mesh.device), mesh,
+                            dist.ReduceOp.MAX).tolist()
+    load_s, first_s, infer_s, peak = times
     return {
         "model": os.path.splitext(os.path.basename(model_path))[0],
         "trial": trial,
-        "load_time": load_t.total_seconds(),
-        "first_call_time": first_t.total_seconds(),
-        "inference_time": infer_t.total_seconds(),
-        "frame_time": infer_t.total_seconds() / max(1, len(dataset)),
-        "memory_usage": peak,
+        "load_time": load_s,
+        "first_call_time": first_s,
+        "inference_time": infer_s,
+        "frame_time": infer_s / max(1, len(dataset)),
+        "memory_usage": int(peak),
         "memory_source": mem_source,
     }
 
@@ -160,22 +198,28 @@ def main(args: Optional[List[str]] = None):
                         help="bfloat16 weights and activations "
                              "(dtype=torch.bfloat16).")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported: ROADMAP A11")
+                        help="serve over a data-parallel mesh, one process "
+                             "a device (torchrun); -b is the global batch, "
+                             "which the ranks must divide")
     parser.add_argument("--spatial", action="store_true",
-                        help="not ported: ROADMAP A11")
+                        help="not ported: ROADMAP A11b")
     parser.add_argument("--policy", default=None, type=str,
                         help="not ported: ROADMAP A13")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device (default: the CUDA card; 'cpu' "
                              "runs the kernels' plain versions)")
     args = parser.parse_args(args)
-    if args.data_parallel or args.spatial:
-        raise NotImplementedError("data-parallel and spatial serving are "
-                                  "not ported yet: ROADMAP item A11")
+    if args.spatial:
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
     if args.policy is not None:
         raise NotImplementedError("serving policies are not ported yet: "
                                   "ROADMAP item A13")
 
+    mesh = None
+    if args.data_parallel:
+        maybe_initialize_distributed(device=args.device)
+        mesh = create_mesh(device=args.device)
+    is_main = mesh is None or mesh.rank == 0
     dataset = VideoFrameDataset(args.frames_dir)
     rows = []
     checkpoints = sorted(f for f in os.listdir(args.checkpoint_dir)
@@ -185,7 +229,7 @@ def main(args: Optional[List[str]] = None):
         print(path)
         for trial in range(args.num_trials):
             row = benchmark_row(dataset, path, trial, args.batch_size,
-                                bf16=args.bf16, device=args.device)
+                                bf16=args.bf16, device=args.device, mesh=mesh)
             rows.append(row)
             print(f"  trial {trial + 1}/{args.num_trials}: "
                   f"load {row['load_time']:.2f}s "
@@ -195,10 +239,11 @@ def main(args: Optional[List[str]] = None):
                   f"({row['memory_source']})")
 
     summary = summarize(rows)
-    write_summary(summary, args.output_dir)
-    for model, entry in summary.items():
-        print(model, " ".join(f"{f}_{s}={entry[(f, s)]}"
-                              for f, s in SUMMARY_COLUMNS))
+    if is_main:
+        write_summary(summary, args.output_dir)
+        for model, entry in summary.items():
+            print(model, " ".join(f"{f}_{s}={entry[(f, s)]}"
+                                  for f, s in SUMMARY_COLUMNS))
     return summary
 
 

@@ -15,8 +15,15 @@ package wrote. A tiny run on the CPU:
         --crop-hw 64 96 --train-csv data/train.csv --test-csv data/test.csv \\
         --device cpu
 
-The data-parallel mesh, its sharded loading and ``--zero1`` are ROADMAP A11;
-``--train-policy`` (the autotuner's policies) is A13.
+Under a launcher (``torchrun --nproc-per-node N -m
+efficientdepthestimation_tpu_torch.apps.train ...``, or the JAX package's
+``EDE_COORDINATOR_ADDRESS``/``EDE_NUM_PROCESSES``/``EDE_PROCESS_ID``) each
+process drives one device of a data-parallel mesh (``parallel``): the batch
+is ``--per-device-batch`` × the data axis, each rank decodes only its rows,
+the BatchNorm statistics, loss, gradients and metrics are the global
+batch's, and ``--zero1`` shards Adam's moments over the ranks. Rank 0
+alone logs and writes. ``--train-policy`` (the autotuner's policies) is
+ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -51,6 +58,13 @@ from efficientdepthestimation_tpu_torch.data.datasets import (
 from efficientdepthestimation_tpu_torch.data.prefetch import device_prefetch
 from efficientdepthestimation_tpu_torch.data.transforms import eval_preprocess
 from efficientdepthestimation_tpu_torch.models.registry import build_model
+from efficientdepthestimation_tpu_torch.parallel import (
+    create_mesh,
+    distributed_batch_iterator,
+    maybe_initialize_distributed,
+    scale_batch_size,
+)
+from efficientdepthestimation_tpu_torch.parallel.mesh import any_rank
 from efficientdepthestimation_tpu_torch.training.metrics import (
     BestMetricsTracker,
     MetricsTracker,
@@ -99,8 +113,9 @@ def parse_args(args: Optional[List[str]] = None):
                              "an eager step runs the augmentation before "
                              "the forward anyway.")
     parser.add_argument("--zero1", action="store_true",
-                        help="Shard the Adam moments across data-parallel "
-                             "ranks (ZeRO-1): ROADMAP A11, not ported yet.")
+                        help="Shard the Adam moments across the data-parallel "
+                             "ranks (ZeRO-1); the train state is written "
+                             "whole, in the unsharded layout.")
     parser.add_argument("--bf16", action="store_true",
                         help="Mixed precision: bfloat16 activations, f32 "
                              "params/BN/loss/optimizer.")
@@ -181,13 +196,48 @@ def epoch_seed(seed: int, epoch: int) -> int:
 
 
 def _epoch_batches(dataset, batch_size: int, device, *, shuffle=False,
-                   seed=0, skip_batches=0):
+                   seed=0, skip_batches=0, mesh=None, accum_steps=1):
     """The split's batches, the last one padded (``pad_last``), copied to
-    ``device`` ahead of use (``device_prefetch``)."""
-    return device_prefetch(
-        batch_iterator(dataset, batch_size, shuffle=shuffle, seed=seed,
-                       pad_last=True, skip_batches=skip_batches),
-        device=device)
+    ``device`` ahead of use (``device_prefetch``). Under a mesh of more than
+    one rank, this rank's rows of each global batch of ``batch_size``
+    (``distributed_batch_iterator``, decoding only those rows; JAX
+    ``apps/train.py:179-191``)."""
+    if mesh is not None and mesh.distributed:
+        batches = distributed_batch_iterator(
+            dataset, batch_size, mesh, shuffle=shuffle, seed=seed,
+            skip_batches=skip_batches, accum_steps=accum_steps)
+    else:
+        batches = batch_iterator(dataset, batch_size, shuffle=shuffle,
+                                 seed=seed, pad_last=True,
+                                 skip_batches=skip_batches)
+    return device_prefetch(batches, device=device)
+
+
+class _NullLogger:
+    """``RunLogger``'s surface for the ranks other than 0: no run I/O (JAX
+    ``apps/train.py:453-476``). Every rank still computes all that rank 0
+    logs, so that the collectives stay in step."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="ede-nonmain-")
+        self.name = "nonmain"
+
+    def set_summary(self, *args, **kwargs):
+        pass
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def log_images(self, *args, **kwargs):
+        pass
+
+    def log_histograms(self, *args, **kwargs):
+        pass
+
+    def finish(self):
+        pass
 
 
 def _model(args, crop: tuple[int, int]) -> torch.nn.Module:
@@ -204,9 +254,6 @@ def _model(args, crop: tuple[int, int]) -> torch.nn.Module:
 
 def main(args: Optional[List[str]] = None):
     args = parse_args(args)
-    if args.zero1:
-        raise NotImplementedError("--zero1 (ZeRO-1 over data-parallel ranks) "
-                                  "is not ported yet (ROADMAP A11)")
     if args.train_policy:
         raise NotImplementedError("--train-policy (the autotuner's policies) "
                                   "is not ported yet (ROADMAP A13)")
@@ -214,11 +261,18 @@ def main(args: Optional[List[str]] = None):
         raise SystemExit("--init-from and --resume are mutually exclusive: "
                          "--resume restores the optimizer exactly, "
                          "--init-from starts a fresh fine-tune")
-    device = resolve_device(args.device)
     training_start_time = datetime.datetime.now()
-    batch_size = args.per_device_batch
+    # A launcher's environment joins the process group; a plain run is a
+    # world of one (JAX apps/train.py:203-210).
+    maybe_initialize_distributed(device=args.device)
+    mesh = create_mesh(device=args.device)
+    device = resolve_device(mesh.device)
+    is_main = mesh.rank == 0
+    batch_size = scale_batch_size(args.per_device_batch, mesh)
     crop = tuple(args.crop_hw)
-    print(f"device={device} batch_size={batch_size}")
+    if is_main:
+        print(f"mesh={dict(mesh.shape)} batch_size={batch_size} "
+              f"processes={mesh.world_size} device={device}")
 
     model = _model(args, crop)
     if args.init_from:
@@ -235,7 +289,8 @@ def main(args: Optional[List[str]] = None):
 
     frozen = ("E", "encoder") if args.freeze_encoder else ()
     state = create_train_state(model, step_lr(args.lr, steps_per_epoch),
-                               args.weight_decay, frozen_prefixes=frozen)
+                               args.weight_decay, frozen_prefixes=frozen,
+                               mesh=mesh, zero1=args.zero1)
     resume_epoch, resume_skip = -1, 0
     if args.resume:
         state, header = load_train_state(args.resume, state)
@@ -259,8 +314,12 @@ def main(args: Optional[List[str]] = None):
     train_step = make_train_step(mixed_precision=args.bf16, crop_hw=crop,
                                  split_preprocess=args.split_preprocess,
                                  remat=remat, accum_steps=accum_steps,
-                                 device=device)
-    eval_step = make_eval_step(device=device)
+                                 device=device, mesh=mesh)
+    eval_step = make_eval_step(device=device, mesh=mesh)
+    # the examples and the gradient probe run on a whole batch on every
+    # rank, without collectives: JAX's replicated batch
+    # (``_replicate_global``, apps/train.py:478-484)
+    example_step = make_eval_step(device=device)
     grad_snapshot = make_grad_snapshot(mixed_precision=args.bf16,
                                        crop_hw=crop, device=device)
 
@@ -268,7 +327,8 @@ def main(args: Optional[List[str]] = None):
         project="deep-depth-estimation",
         config={"network": {"encoder": {"name": args.encoder},
                             "decoder_type": args.decoder}},
-        name_prefix=f"{args.encoder}-{args.decoder}")
+        name_prefix=f"{args.encoder}-{args.decoder}"
+    ) if is_main else _NullLogger()
     logger.set_summary("num_parameters",
                        sum(p.numel() for p in model.parameters()))
     checkpoint_path = os.path.join(logger.dir, f"{logger.name}.ede")
@@ -278,7 +338,8 @@ def main(args: Optional[List[str]] = None):
     _install_preemption_handler()
 
     def save_rolling(state, epoch, step_in_epoch=None):
-        """The whole train state, for an exact resume (--resume)."""
+        """The whole train state, for an exact resume (--resume): every
+        rank gathers (ZeRO-1), rank 0 writes."""
         save_train_state(rolling_path, state, encoder=args.encoder,
                          decoder=args.decoder, epoch=epoch,
                          step_in_epoch=step_in_epoch)
@@ -299,7 +360,8 @@ def main(args: Optional[List[str]] = None):
                 state, train_step, train_ds, batch_size, args.seed, epoch,
                 skip_batches=resume_skip if epoch == resume_epoch else 0,
                 save_every=args.save_every, checkpoint_cb=save_rolling,
-                stop_after_steps=args.stop_after_steps, device=device)
+                stop_after_steps=args.stop_after_steps, device=device,
+                mesh=mesh, accum_steps=accum_steps)
         if preempted:
             print(f"Preempted at epoch {epoch}: exact train state saved to "
                   f"{rolling_path}; continue with --resume")
@@ -308,9 +370,9 @@ def main(args: Optional[List[str]] = None):
 
         with test_timer:
             metrics = run_eval_epoch(state, eval_step, test_ds, batch_size,
-                                     crop_hw=crop, device=device)
+                                     crop_hw=crop, device=device, mesh=mesh)
 
-        if metrics.abs_rel.value < min_loss:
+        if metrics.abs_rel.value < min_loss and is_main:
             min_loss = metrics.abs_rel.value
             if args.decoder == "lasinger2019":
                 save_midas(checkpoint_path, model)
@@ -327,7 +389,8 @@ def main(args: Optional[List[str]] = None):
             torch.from_numpy(example["image"]).to(device),
             torch.from_numpy(example["depth"]).to(device), crop_hw=crop)
         with inference_timer:
-            _, examples = eval_step(state, images, depths, images.shape[0])
+            _, examples = example_step(state, images, depths,
+                                       images.shape[0])
             examples = examples.cpu().numpy()
         logger.log_images("examples", examples / 10.0, step=epoch)
 
@@ -370,15 +433,17 @@ def main(args: Optional[List[str]] = None):
                 inference_timer.elapsed.total_seconds() / max(1, len(examples)),
         }, step=epoch)
 
-    print(f"Total Training Time: "
-          f"{datetime.datetime.now() - training_start_time}.")
+    if is_main:
+        print(f"Total Training Time: "
+              f"{datetime.datetime.now() - training_start_time}.")
     logger.finish()
     return checkpoint_path
 
 
 def run_train_epoch(state, train_step, dataset, batch_size: int, seed: int,
                     epoch: int, *, skip_batches: int = 0, save_every: int = 0,
-                    checkpoint_cb=None, stop_after_steps=None, device=None):
+                    checkpoint_cb=None, stop_after_steps=None, device=None,
+                    mesh=None, accum_steps: int = 1):
     """One training epoch with metrics read back one step behind.
 
     The host reads step k's metrics only after step k+1 is queued, so
@@ -394,6 +459,13 @@ def run_train_epoch(state, train_step, dataset, batch_size: int, seed: int,
     seeded by ``epoch`` and each step's generators by
     (``epoch_seed(seed, epoch)``, ``state.step``). Returns ``(state,
     {"loss": mean loss}, stopped)``.
+
+    Under a ``mesh`` of more than one rank (a ``train_step`` made for it)
+    ``batch_size`` is the global batch, each rank takes its rows
+    (``accum_steps`` as the step's), and the stop flag is reduced across
+    the ranks at every step boundary (on the host, ``parallel.any_rank``:
+    the check waits for no device work), so that a SIGTERM that reaches
+    one rank stops all of them after the same step.
     """
     device = resolve_device(device)
     tracker = MetricsTracker()
@@ -418,7 +490,8 @@ def run_train_epoch(state, train_step, dataset, batch_size: int, seed: int,
 
     steps_done = skip_batches
     for batch in _epoch_batches(dataset, batch_size, device, shuffle=True,
-                                seed=epoch, skip_batches=skip_batches):
+                                seed=epoch, skip_batches=skip_batches,
+                                mesh=mesh, accum_steps=accum_steps):
         state, metrics = train_step(state, batch, step_seed)
         seen += int(batch["num_valid"])
         steps_done += 1
@@ -426,9 +499,10 @@ def run_train_epoch(state, train_step, dataset, batch_size: int, seed: int,
             drain(pending)
         pending = metrics
 
-        stop = _PREEMPTED.is_set() or (
+        stop = any_rank(_PREEMPTED.is_set() or (
             stop_after_steps is not None
-            and start_step + (steps_done - skip_batches) >= stop_after_steps)
+            and start_step + (steps_done - skip_batches) >= stop_after_steps),
+            mesh)
         if checkpoint_cb is not None and (
                 stop or (save_every and steps_done % save_every == 0)):
             checkpoint_cb(state, epoch, steps_done)
@@ -443,18 +517,23 @@ def run_train_epoch(state, train_step, dataset, batch_size: int, seed: int,
 
 
 def run_eval_epoch(state, eval_step, dataset, batch_size: int,
-                   crop_hw: tuple[int, int] = (228, 304), *, device=None
-                   ) -> MetricsTracker:
+                   crop_hw: tuple[int, int] = (228, 304), *, device=None,
+                   mesh=None) -> MetricsTracker:
     """One pass of ``eval_step`` (``make_eval_step``) over a test split of
     uint8 frames and 16-bit mm depths: ``eval_preprocess`` on ``device``
     (the CUDA card unless ``device="cpu"``), the step, and the tracker fed
     with each batch's sums. The last batch is padded (``pad_last``) and its
-    duplicates masked through ``num_valid``. Returns the tracker."""
+    duplicates masked through ``num_valid``. Returns the tracker.
+
+    Under a ``mesh`` of more than one rank (an ``eval_step`` made for it)
+    each rank evaluates its rows of each global batch of ``batch_size``,
+    and the step sums the metric parts over the ranks, so that every
+    rank's tracker is the one-process one."""
     device = resolve_device(device)
     tracker = MetricsTracker()
     seen = 0
     epoch_start = datetime.datetime.now()
-    for batch in _epoch_batches(dataset, batch_size, device):
+    for batch in _epoch_batches(dataset, batch_size, device, mesh=mesh):
         images, depths = eval_preprocess(
             torch.as_tensor(batch["image"]).to(device),
             torch.as_tensor(batch["depth"]).to(device), crop_hw=crop_hw)

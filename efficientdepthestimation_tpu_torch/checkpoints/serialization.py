@@ -30,6 +30,7 @@ import warnings
 import msgpack
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from efficientdepthestimation_tpu_torch import MIDAS_CHECKPOINT_VERSION
@@ -42,6 +43,10 @@ from efficientdepthestimation_tpu_torch.models.midas import (
     MidasNet,
 )
 from efficientdepthestimation_tpu_torch.models.registry import build_model
+from efficientdepthestimation_tpu_torch.parallel.mesh import (
+    all_reduce_,
+    broadcast_flat,
+)
 
 __all__ = ["read_ede", "write_ede", "load_checkpoint", "save_checkpoint",
            "load_midas", "save_midas", "check_midas_version", "midas_model",
@@ -189,20 +194,57 @@ def load_midas(path: str) -> tuple[nn.Module, dict]:
 # "trained": {"inner_state": <that>}}}``, and ``mu``/``nu`` hold ``{}`` under
 # each frozen key. ``mu``/``nu`` are torch Adam's ``exp_avg``/``exp_avg_sq``
 # with the parameters' layout; ``count`` is the number of updates, which is
-# Adam's ``step`` and the LR schedule's count.
+# Adam's ``step`` and the LR schedule's count. Under ZeRO-1 each rank's
+# optimizer holds only the parameters it owns (``TrainState.owners``): a
+# save gathers every owner's moments first, and a load keeps each rank's.
+
+
+def _adam_states(state) -> tuple[int, dict]:
+    """(count, {trained name: Adam's state}) of the whole model, on every
+    rank. Under ZeRO-1 over several ranks each owner broadcasts its
+    parameters' moments (every rank takes part). Before the first update
+    there are no moments, and the count is 0; after it, a trained parameter
+    without moments raises rather than being written as zeros."""
+    named = state.trained()
+    mesh = state.mesh
+    local = {k: state.optimizer.state[p] for k, p in named
+             if p in state.optimizer.state}
+    count = max((int(a["step"]) for a in local.values()), default=0)
+    owned = [k for k, _ in named
+             if state.owners is None or state.owners[k] == mesh.data_index]
+    missing = sum(k not in local for k in owned)
+    if mesh is not None and mesh.distributed:
+        device = next(state.model.parameters()).device
+        flags = all_reduce_(torch.tensor([count, missing], dtype=torch.int64,
+                                         device=device), mesh,
+                            dist.ReduceOp.MAX)
+        count, missing = (int(v) for v in flags.cpu())
+    if count and missing:
+        raise RuntimeError(f"train-state: {missing} trained parameters have "
+                           "no Adam moments after an update")
+    if not count:
+        return 0, {}
+    if state.owners is None or not mesh.distributed:
+        return count, local
+    gathered = {}
+    for owner in range(mesh.shape["data"]):
+        mine = [(k, p) for k, p in named if state.owners[k] == owner]
+        for k, p in mine:
+            gathered[k] = local.get(k) or {"exp_avg": torch.empty_like(p),
+                                           "exp_avg_sq": torch.empty_like(p)}
+        with torch.no_grad():
+            broadcast_flat([gathered[k][key] for k, _ in mine
+                            for key in ("exp_avg", "exp_avg_sq")], owner, mesh)
+    return count, gathered
 
 
 def _opt_state_dict(state) -> dict:
-    params = dict(state.model.named_parameters())
+    count, adams = _adam_states(state)
     moments = {"mu": {}, "nu": {}}
-    count = 0
-    for name, p in params.items():
-        if not p.requires_grad:
-            continue
-        adam = state.optimizer.state.get(p, {})
-        count = max(count, int(adam.get("step", 0)))
+    for name, p in state.trained():
         for key, torch_key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            moments[key][name] = adam.get(torch_key, torch.zeros_like(p))
+            moments[key][name] = (adams[name][torch_key] if count
+                                  else torch.zeros_like(p))
     count_arr = np.asarray(count, np.int32)
     adam = {"count": count_arr}
     for key, values in moments.items():
@@ -237,6 +279,9 @@ def _load_opt_state(state, opt: dict) -> None:
                          "those of this model's trained parameters")
     state.optimizer.state.clear()
     for name in trained:
+        if (state.owners is not None
+                and state.owners[name] != state.mesh.data_index):
+            continue  # ZeRO-1: another rank's moments
         p = params[name]
         state.optimizer.state[p] = {
             "step": torch.tensor(float(count)),
@@ -253,7 +298,13 @@ def save_train_state(path: str, state, *, encoder: str, decoder: str,
     ``step_in_epoch`` is set for a mid-epoch save (``--save-every``, a
     preemption): the batches of ``epoch`` already applied, which a resume
     skips. ``None`` means that the epoch ended, and a resume starts the
-    next one."""
+    next one.
+
+    Under a data-parallel mesh every rank calls it (a ZeRO-1 state gathers
+    its moments from their owners) and rank 0 alone writes the file."""
+    opt_state = _opt_state_dict(state)
+    if state.mesh is not None and state.mesh.rank != 0:
+        return
     header = {"format": "train-state", "encoder": encoder,
               "decoder": decoder, "epoch": int(epoch),
               "step": int(state.step), "version": MIDAS_CHECKPOINT_VERSION}
@@ -261,7 +312,7 @@ def save_train_state(path: str, state, *, encoder: str, decoder: str,
         header["step_in_epoch"] = int(step_in_epoch)
     payload = to_jax_variables(state.model.state_dict())
     payload.setdefault("batch_stats", {})
-    payload["opt_state"] = _opt_state_dict(state)
+    payload["opt_state"] = opt_state
     write_ede(path, header, payload)
 
 
@@ -269,7 +320,9 @@ def load_train_state(path: str, state):
     """Restore a ``train-state`` file into a ``TrainState`` built for the
     same model and optimizer (``create_train_state``), in place: weights,
     statistics, Adam's moments, the update count (and so the LR schedule)
-    and the step. Returns ``(state, header)``."""
+    and the step. Returns ``(state, header)``. Under a mesh every rank
+    reads the file; a ZeRO-1 rank keeps the moments it owns, whatever the
+    world size of the run that wrote it."""
     header, payload = read_ede(path)
     if header.get("format") != "train-state":
         raise ValueError("Not a train-state checkpoint")

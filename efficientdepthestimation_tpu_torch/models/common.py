@@ -8,6 +8,7 @@ carry the JAX package's module names, so a JAX parameter path joined with
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 
 import torch
@@ -15,8 +16,54 @@ from torch import nn
 
 from efficientdepthestimation_tpu_torch.ops.conv import conv2d
 from efficientdepthestimation_tpu_torch.ops.norm import batch_norm, fold_bn
+from efficientdepthestimation_tpu_torch.parallel.mesh import (
+    differentiable_all_reduce,
+)
 
-__all__ = ["Conv", "BatchNorm", "frozen_statistics", "randomize_"]
+__all__ = ["Conv", "BatchNorm", "frozen_statistics", "randomize_",
+           "BatchShare", "batch_share", "per_sample_uniform"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShare:
+    """This process's share of a data-parallel training batch: its local
+    rows are global rows ``[start, start + n)`` of a batch of ``total``
+    rows, and ``group`` (a ``torch.distributed`` process group) joins the
+    ranks whose shares make up that batch."""
+
+    group: object
+    start: int
+    total: int
+
+
+_SHARE: BatchShare | None = None
+
+
+@contextlib.contextmanager
+def batch_share(share: BatchShare | None):
+    """Within the block, training forwards see ``share``: every training
+    ``BatchNorm`` normalizes by the statistics of the global batch
+    (all-reduced over ``share.group``, as GSPMD makes them in JAX), and
+    ``per_sample_uniform`` draws for the global batch and keeps the local
+    rows. ``None`` (a world of one) changes nothing."""
+    global _SHARE
+    saved, _SHARE = _SHARE, share
+    try:
+        yield
+    finally:
+        _SHARE = saved
+
+
+def per_sample_uniform(n: int, generator: torch.Generator,
+                       device) -> torch.Tensor:
+    """U[0, 1) draws (n, 1, 1, 1), one a sample of the local batch: under a
+    ``batch_share`` those of the global batch's draw at this rank's rows, so
+    that W ranks draw what one process draws for the whole batch."""
+    if _SHARE is None:
+        return torch.rand((n, 1, 1, 1), generator=generator, device=device)
+    u = torch.rand((_SHARE.total, 1, 1, 1), generator=generator,
+                   device=device)
+    return u[_SHARE.start:_SHARE.start + n]
 
 
 class Conv(nn.Module):
@@ -54,6 +101,14 @@ class BatchNorm(nn.Module):
     ``weight``/``bias`` may be bf16 (mixed precision), the statistics stay
     f32. ``track_statistics = False`` (``frozen_statistics``) keeps the
     running statistics as they are in training.
+
+    Under a ``batch_share`` the training statistics are the global batch's:
+    the per-channel Σx, Σx² and the element count are all-reduced over the
+    share's group in one differentiable collective
+    (``parallel.mesh.differentiable_all_reduce``, whose backward sums the
+    gradients of every rank) before the normalization, and the global
+    count enters the unbiased running variance. Every rank issues the same
+    collectives, also with ``frozen_statistics`` and in a recompute.
     """
 
     track_statistics = True
@@ -76,13 +131,24 @@ class BatchNorm(nn.Module):
         if not self.training:
             return batch_norm(x, *self.folded())
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
         n = x.shape[0] * x.shape[1] * x.shape[2]
+        if _SHARE is None:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
+        else:
+            c = xf.shape[-1]
+            local = torch.cat([xf.sum(dim=(0, 1, 2)),
+                               xf.square().sum(dim=(0, 1, 2)),
+                               xf.new_full((1,), float(n))])
+            total = differentiable_all_reduce(local, _SHARE.group)
+            n = total[2 * c]  # a tensor: no host read mid-forward
+            mean = total[:c] / n
+            var = total[c:2 * c] / n - mean.square()
         if self.track_statistics:
             with torch.no_grad():
                 m = self.momentum
-                unbiased = var * (n / max(n - 1, 1))
+                unbiased = var * (n / (max(n - 1, 1) if _SHARE is None
+                                       else (n - 1).clamp(min=1)))
                 self.running_mean.copy_((1 - m) * self.running_mean
                                         + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var

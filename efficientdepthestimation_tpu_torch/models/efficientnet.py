@@ -19,7 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from efficientdepthestimation_tpu_torch.models.common import BatchNorm, Conv
+from efficientdepthestimation_tpu_torch.models.common import (
+    BatchNorm,
+    Conv,
+    per_sample_uniform,
+)
 from efficientdepthestimation_tpu_torch.ops.conv import same_padding_static
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
@@ -181,7 +185,9 @@ class EfficientNetFeatures(nn.Module):
 
     In training, residual block ``i`` of ``n`` drops its branch per sample
     with probability ``drop_connect_rate · i / n`` (``efficientnet.py:263,
-    282``); 0 turns drop-connect off.
+    282``); 0 turns drop-connect off. Under a data-parallel
+    ``models.common.batch_share`` the masks are the global batch's, at this
+    rank's rows.
     """
 
     def __init__(self, variant: str = "efficientnet-b0",
@@ -212,8 +218,7 @@ class EfficientNetFeatures(nn.Module):
                     raise ValueError("drop-connect in training needs a "
                                      "torch.Generator")
                 keep = 1.0 - rate
-                u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                               device=x.device)
+                u = per_sample_uniform(x.shape[0], generator, x.device)
                 x = block(x, (u < keep).to(x.dtype), keep)
             else:
                 x = block(x)

@@ -224,39 +224,57 @@ fused_depth_loss_fwd.launches = 0
 fused_depth_loss_bwd.launches = 0
 
 
-def masked_total(sums: torch.Tensor, mask: torch.Tensor, hw: int
-                 ) -> torch.Tensor:
+def masked_total(sums: torch.Tensor, mask: torch.Tensor, hw: int,
+                 denominator=None) -> torch.Tensor:
     """The loss from per-image sums: each term's mean over the valid
     images' pixels, then depth + normal + dx + dy (``fused_loss.py:111-115``,
-    reference train.py:236)."""
-    per_term = (sums * mask[:, None]).sum(dim=0) / (mask.sum() * hw)
+    reference train.py:236). ``denominator`` (an int) replaces the valid
+    count ``mask.sum()`` in the mean: a data-parallel rank passes the global
+    batch's, so that the ranks' losses sum to the global mean (JAX's under
+    SPMD) and a rank of padding alone gives 0."""
+    per_term = (sums * mask[:, None]).sum(dim=0) / (
+        _count(mask, denominator) * hw)
     return per_term[0] + per_term[3] + per_term[1] + per_term[2]
+
+
+def _count(mask: torch.Tensor, denominator) -> torch.Tensor:
+    """The mean's valid count as a 0-d tensor on the mask's device, so that
+    the mean is a division by a tensor whichever count it is (on CUDA a
+    division by a host scalar is a product with its reciprocal, which may
+    differ in the last bit)."""
+    return (mask.sum() if denominator is None
+            else mask.new_full((), float(denominator)))
 
 
 class _FusedDepthLoss(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, pred, target, mask):
+    def forward(ctx, pred, target, mask, denominator):
         p, t = _image_stack(pred).contiguous(), _image_stack(target)
         t = t.float().contiguous()
         ctx.save_for_backward(p, t, mask)
         ctx.pred_shape = pred.shape
+        ctx.denominator = denominator
         return masked_total(fused_depth_loss_fwd(p, t), mask,
-                            p.shape[1] * p.shape[2])
+                            p.shape[1] * p.shape[2], denominator)
 
     @staticmethod
     def backward(ctx, g):
         p, t, mask = ctx.saved_tensors
-        coef = (g.float() / (mask.sum() * (p.shape[1] * p.shape[2])))
+        coef = (g.float() / (_count(mask, ctx.denominator)
+                             * (p.shape[1] * p.shape[2])))
         dp = fused_depth_loss_bwd(p, t, mask, coef.reshape(1))
-        return dp.reshape(ctx.pred_shape), None, None
+        return dp.reshape(ctx.pred_shape), None, None, None
 
 
 def fused_depth_loss(pred: torch.Tensor, target: torch.Tensor,
-                     num_valid=None) -> torch.Tensor:
+                     num_valid=None, denominator=None) -> torch.Tensor:
     """The 4-term loss over NHWC (N, H, W, 1) or (N, H, W) pred/target,
     differentiable in pred. ``num_valid`` (None, an int or a 0-d tensor):
     only the first ``num_valid`` images count, and the mean is
-    Σ valid / (num_valid·H·W)."""
+    Σ valid / (num_valid·H·W). A data-parallel rank passes its share of the
+    valid rows as ``num_valid`` and the global batch's valid count as
+    ``denominator``, which then replaces ``num_valid`` in the mean; with
+    ``denominator=None`` nothing changes."""
     mask = sample_mask(pred.shape[0], num_valid, pred.device)
-    return _FusedDepthLoss.apply(pred, target, mask)
+    return _FusedDepthLoss.apply(pred, target, mask, denominator)

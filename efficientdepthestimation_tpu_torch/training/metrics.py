@@ -31,19 +31,19 @@ from efficientdepthestimation_tpu_torch.training.loss import (
     sample_mask as sample_mask_of,
 )
 
-__all__ = ["depth_metrics_batch", "edge_metrics_batch", "sums_to_host",
+__all__ = ["depth_metrics_batch", "depth_metric_parts",
+           "finish_depth_metrics", "edge_metrics_batch", "sums_to_host",
            "MetricsMeter", "AverageMeter", "LambdaMeter", "MetricsTracker",
            "BestMetricsTracker"]
 
 
-def depth_metrics_batch(outputs: torch.Tensor, labels: torch.Tensor,
-                        num_valid=None) -> dict[str, torch.Tensor]:
-    """Per-batch metric sums; outputs/labels (N, H, W, 1) or (N, H, W).
-
-    ``num_valid`` (None, an int or a 0-d tensor) marks only the first
-    ``num_valid`` samples as real: the ``pad_last`` duplicates are left out
-    of every sum and of the reported ``batch_size``.
-    """
+def depth_metric_parts(outputs: torch.Tensor, labels: torch.Tensor,
+                       num_valid=None) -> torch.Tensor:
+    """The sums ``depth_metrics_batch`` is made of, as one f32 tensor (9,):
+    Σ|r|, Σr², Σ|r|/label, Σ|log10 ratio|, the δ1-3 hits, the valid pixels
+    and the valid samples. They add across the ranks of a data-parallel
+    batch (one ``all_reduce``), and ``finish_depth_metrics`` turns the
+    global ones into the global batch's metrics."""
     outputs = outputs.float()
     labels = labels.float()
     n = labels.shape[0]
@@ -57,27 +57,50 @@ def depth_metrics_batch(outputs: torch.Tensor, labels: torch.Tensor,
 
     residuals = outputs - labels
     zero = torch.zeros((), device=labels.device)
-    abs_res = torch.where(pix_mask, residuals.abs(), zero)
-    mae = batch_size * abs_res.sum() / num_valid_px
-    mse = batch_size * torch.where(pix_mask, residuals.square(),
-                                   zero).sum() / num_valid_px
+    abs_res = torch.where(pix_mask, residuals.abs(), zero).sum()
+    sq_res = torch.where(pix_mask, residuals.square(), zero).sum()
 
     excluded = nan_mask | invalid_mask | ~pix_mask
-    abs_rel = torch.where(excluded, zero, residuals.abs() / labels)
-    abs_rel = batch_size * abs_rel.sum() / num_valid_px
+    abs_rel = torch.where(excluded, zero, residuals.abs() / labels).sum()
 
     log10 = torch.abs(torch.log10(outputs) - torch.log10(labels))
-    log10 = torch.where(excluded, zero, log10).sum() / num_valid_px
+    log10 = torch.where(excluded, zero, log10).sum()
 
     max_ratio = torch.maximum(outputs / labels, labels / outputs)
 
-    def thr(t):
-        hits = (max_ratio <= t) & pix_mask
-        return batch_size * hits.float().sum() / num_valid_px
+    def hits(t):
+        return ((max_ratio <= t) & pix_mask).float().sum()
 
-    return {"mae": mae, "mse": mse, "abs_rel": abs_rel, "log10": log10,
-            "delta1": thr(1.25), "delta2": thr(1.25 ** 2),
-            "delta3": thr(1.25 ** 3), "batch_size": batch_size}
+    return torch.stack([abs_res, sq_res, abs_rel, log10, hits(1.25),
+                        hits(1.25 ** 2), hits(1.25 ** 3), num_valid_px,
+                        batch_size])
+
+
+def finish_depth_metrics(parts: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``depth_metrics_batch``'s sums from ``depth_metric_parts``: the mean
+    over valid pixels, scaled by the valid samples (log10 unscaled)."""
+    (abs_res, sq_res, abs_rel, log10, d1, d2, d3, num_valid_px,
+     batch_size) = parts.unbind()
+    return {"mae": batch_size * abs_res / num_valid_px,
+            "mse": batch_size * sq_res / num_valid_px,
+            "abs_rel": batch_size * abs_rel / num_valid_px,
+            "log10": log10 / num_valid_px,
+            "delta1": batch_size * d1 / num_valid_px,
+            "delta2": batch_size * d2 / num_valid_px,
+            "delta3": batch_size * d3 / num_valid_px,
+            "batch_size": batch_size}
+
+
+def depth_metrics_batch(outputs: torch.Tensor, labels: torch.Tensor,
+                        num_valid=None) -> dict[str, torch.Tensor]:
+    """Per-batch metric sums; outputs/labels (N, H, W, 1) or (N, H, W).
+
+    ``num_valid`` (None, an int or a 0-d tensor) marks only the first
+    ``num_valid`` samples as real: the ``pad_last`` duplicates are left out
+    of every sum and of the reported ``batch_size``.
+    """
+    return finish_depth_metrics(depth_metric_parts(outputs, labels,
+                                                   num_valid))
 
 
 def edge_metrics_batch(outputs: torch.Tensor, labels: torch.Tensor,

@@ -302,9 +302,13 @@ def test_inference_benchmark_cli_matches_jax(workspace, tmp_path):
                                           "load_time_std"]
     assert csv_lines[1].startswith("RN18-HU,") and len(csv_lines) == 2
     assert "RN18-HU" in (out_dir / "inference_benchmark.tex").read_text()
-    for flag in (["--data-parallel"], ["--spatial"]):
-        with pytest.raises(NotImplementedError, match="A11"):
-            inference_benchmark.main(argv + flag + ["--device", "cpu"])
+    # a world of one serves the whole batch through the mesh path
+    dp = _quiet(inference_benchmark.main,
+                argv + ["-o", str(tmp_path / "dp"), "--device", "cpu",
+                        "--data-parallel"])
+    assert list(dp) == ["RN18-HU"] and list(dp["RN18-HU"]) == list(entry)
+    with pytest.raises(NotImplementedError, match="A11b"):
+        inference_benchmark.main(argv + ["--spatial", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A13"):
         inference_benchmark.main(argv + ["--policy", "p.json", "--device",
                                          "cpu"])

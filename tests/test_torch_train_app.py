@@ -178,7 +178,5 @@ def test_flags_that_raise(synthetic_nyu, tmp_path):  # noqa: F811
     with pytest.raises(SystemExit):
         train.main(_args(synthetic_nyu, "--init-from", "a.ede",
                          "--resume", "b.ede"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        train.main(_args(synthetic_nyu, "--zero1"))
     with pytest.raises(NotImplementedError, match="A13"):
         train.main(_args(synthetic_nyu, "--train-policy", "policy.json"))
