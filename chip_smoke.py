@@ -3,7 +3,8 @@
 the route of each Hu2018 decoder site timed both ways, serving of the other
 released configurations and of DN161-HU and SN154-HU, evaluation,
 reference ``.pth`` checkpoints served and run through the apps, the
-training CLI, the user-centred benchmark and the data-parallel mesh.
+training CLI, the user-centred benchmark, the data-parallel mesh and the
+serving forms with their policy.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -157,13 +158,32 @@ Phases, one output line each (more for the per-site detail):
      loader, prefetch, metrics read one step behind and the stop flag
      reduced on the host at every step boundary) a step beside the bare
      step's, with the flag's reduction alone.
+ 14. serving forms (``apps.common``, ``apps.autotune``): the eight
+     configurations (ENB0-HU and ENB0-LR from their ``.ede``, the others
+     with phase 8's weights) serve phase 4's frames in bf16 in each form:
+     monolithic, staged under each MFF merge (Hu2018), and the depthwise
+     modes "xla" and "shift" (EfficientNet encoders), each with exact
+     launches, within phase 5's bf16 tolerances of the monolithic output
+     (ENB0-HU's also of the JAX fixture), its frames/s, idle share and
+     peak memory; at batch 256 the monolithic, staged, tiled and
+     tiled-staged forms (tiles of 128), frames/s and peak; that
+     ``make_serving_fn`` serves its rule's form; int8 at RN50-HU,
+     SN154-HU, DN161-HU and ENB0-HU: each quantized conv's int8 time
+     against cuDNN's bf16 conv by graph replay, then the int8 forward's
+     launches, frames/s and ``rel_out_err`` against the float output (at
+     most ``INT8_REL_MAX``); ``autotune_serving`` for ENB0-HU and RN50-HU
+     at batch 128 into a policy that ``make_serving_fn`` must then follow,
+     and ``autotune_train`` for ENB0-HU at batch 64, whose winner the
+     training CLI's ``--train-policy`` must resolve to; the phase's
+     seconds.
 
-It prints a JSON line of the native libraries' build, a JSON line of the
-parallelism figures, a JSON line of the routes' times, a JSON line of the evaluation
-figures, a JSON line of the ``.pth`` and app figures, a JSON line of the
-training CLI's figures, a JSON line of the benchmark's figures, a JSON line
-of per-configuration figures, the card's name and power limit, a JSON line
-of per-kernel figures, then, as its last line, ``{"ok": true, "device":
+It prints a JSON line of the serving forms, a JSON line of the native
+libraries' build, a JSON line of the parallelism figures, a JSON line of
+the routes' times, a JSON line of the evaluation figures, a JSON line of
+the ``.pth`` and app figures, a JSON line of the training CLI's figures, a
+JSON line of the benchmark's figures, a JSON line of per-configuration
+figures, the card's name and power limit, a JSON line of per-kernel
+figures, then, as its last line, ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero without that
 line; so does a machine without a CUDA card.
 """
@@ -195,10 +215,17 @@ from efficientdepthestimation_tpu_torch import (
     native,
 )
 from efficientdepthestimation_tpu_torch.apps import train as train_app
+from efficientdepthestimation_tpu_torch.apps.autotune import (
+    autotune_serving,
+    autotune_train,
+    build_serving_candidate,
+)
 from efficientdepthestimation_tpu_torch.apps.common import (
+    MFF_MERGES,
     load_any_checkpoint,
     make_infer_fn,
     make_serving_fn,
+    serving_form,
 )
 from efficientdepthestimation_tpu_torch.apps.demo import depth_of
 from efficientdepthestimation_tpu_torch.apps.depth_video import (
@@ -264,6 +291,8 @@ from efficientdepthestimation_tpu_torch.native import build as native_build
 from efficientdepthestimation_tpu_torch.native import (
     encoder as native_encoder,
 )
+from efficientdepthestimation_tpu_torch.ops import quant
+from efficientdepthestimation_tpu_torch.ops.conv import conv2d
 from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
     upsample_conv_pair,
@@ -284,6 +313,10 @@ from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
     upsample_conv,
     upsample_conv_plain,
+)
+from efficientdepthestimation_tpu_torch.ops.quant import (
+    quantized_convs,
+    should_quantize,
 )
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
@@ -953,11 +986,13 @@ def composition(x: torch.Tensor, k: torch.Tensor, size) -> torch.Tensor:
     return ys[0] if len(ys) == 1 else torch.cat(ys)
 
 
-def serving_rate(serve, frames, card, phase: str, label: str) -> dict:
+def serving_rate(serve, frames, card, phase: str, label: str,
+                 top_ops: bool = True) -> dict:
     """frames/s and ms per batch on the host clock over ITERS calls after
-    WARMUP, the peak device memory of those calls, and the card's kernel
-    busy time in one call with the idle share of the batch time it
-    leaves."""
+    WARMUP, the peak device memory of those calls, the card's kernel busy
+    time and idle share in two traced calls (``idle_share``) and, with
+    ``top_ops``, the operators with the most device time
+    (``kernel_busy``)."""
     for _ in range(WARMUP):
         serve(frames)
     torch.cuda.synchronize()
@@ -972,16 +1007,19 @@ def serving_rate(serve, frames, card, phase: str, label: str) -> dict:
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 held_gib=held)
     with torch.inference_mode():
-        busy, records, top = kernel_busy(lambda: serve(frames))
-    rate.update(busy_ms=busy, idle_share=1 - busy / rate["ms_per_batch"])
+        idle, busy, traced, records = idle_share(lambda: serve(frames))
+        rate.update(busy_ms=busy, idle_share=idle, traced_ms=traced)
+        top = kernel_busy(lambda: serve(frames))[2] if top_ops else []
     log(phase, f"{card}: {label} serving {BATCH}x{FRAME_HW} bf16: "
         f"{rate['frames_per_s']:.1f} frames/s ({rate['ms_per_batch']:.2f} ms "
         f"per batch, host clock), peak memory {rate['peak_gib']:.2f} GiB "
-        f"({held:.2f} GiB held before the calls); "
-        f"kernels busy {busy:.2f} ms per batch (torch.profiler, "
-        f"{records:.0f} kernel and copy records a call): device idle share "
-        f"{rate['idle_share']:.3f}; most device ms per batch: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in top[:5]))
+        f"({held:.2f} GiB held before the calls); kernels busy {busy:.2f} "
+        f"ms of a traced {traced:.2f} ms per batch (torch.profiler, "
+        f"{records:.0f} kernel and copy records a call, device records "
+        f"alone): device idle share {idle:.3f}"
+        + ("; most device ms per batch: "
+           + ", ".join(f"{k} {v:.2f}" for k, v in top[:5]) if top_ops
+           else ""))
     return rate
 
 
@@ -1547,11 +1585,11 @@ def union_us(spans: list[tuple[float, float]]) -> float:
     return busy + hi - lo
 
 
-def kernel_busy(fn, calls: int = 2) -> tuple:
-    """Device busy ms per ``fn()`` call (the union of the kernels' intervals
-    in a ``torch.profiler`` trace of ``calls`` calls, after one unprofiled
-    call), device records per call, and the operators with the most device
-    time per call.
+def _trace(fn, calls: int, activities) -> tuple:
+    """A ``torch.profiler`` trace of ``calls`` calls of ``fn`` after one
+    untraced call, its device records' sorted (start, end) µs and the
+    host-clock seconds from the first traced call to the synchronize after
+    the last, a window that holds every traced kernel.
 
     Every ``fn`` here launches kernels, so a trace without device records
     is the tracer's loss, not the program's: CUPTI now and then returns an
@@ -1561,26 +1599,46 @@ def kernel_busy(fn, calls: int = 2) -> tuple:
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILER_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            window = time.perf_counter() - t0
         spans = device_spans(prof)
         if spans:
-            break
+            return prof, spans, window
         log("profiler", f"trace {attempt} of {PROFILER_TRIES} holds no "
             "device record; tracing again")
         time.sleep(1.0)
-    else:
-        raise RuntimeError(f"the profiler saw no kernel on the card in "
-                           f"{PROFILER_TRIES} traces")
-    busy = union_us(spans)
+    raise RuntimeError(f"the profiler saw no kernel on the card in "
+                       f"{PROFILER_TRIES} traces")
+
+
+def kernel_busy(fn, calls: int = 2) -> tuple:
+    """Device busy ms per ``fn()`` call (the union of the kernels' intervals
+    in a trace of ``calls`` calls, ``_trace``), device records per call,
+    and the operators with the most device time per call."""
+    prof, spans, _ = _trace(fn, calls, [ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
     ops = sorted(((e.key, _self_device_us(e) / calls / 1e3)
                   for e in prof.key_averages()
                   if e.key.startswith("aten::") and _self_device_us(e) > 0),
                  key=lambda kv: -kv[1])
-    return busy / calls / 1e3, len(spans) / calls, ops[:8]
+    return union_us(spans) / calls / 1e3, len(spans) / calls, ops[:8]
+
+
+def idle_share(fn, calls: int = 2) -> tuple:
+    """The device's idle share of ``fn()``'s time, its busy ms, the host
+    ms and the device records per call, from one trace of ``calls`` calls
+    (``_trace``) that records device activity alone: host-operator records
+    would slow the host, and so stretch a host-paced ``fn``'s window. The
+    kernels lie in the window, so the share lies in [0, 1)."""
+    _, spans, window = _trace(fn, calls, [ProfilerActivity.CUDA])
+    busy, host = union_us(spans) / calls / 1e3, 1e3 * window / calls
+    if not 0 < busy <= host:
+        raise RuntimeError(f"kernels busy {busy} ms in a {host} ms window")
+    return 1 - busy / host, busy, host, len(spans) / calls
 
 
 def loss_bound(ops_per_px: int, mufu_per_px: int, bytes_per_px: int
@@ -3817,6 +3875,350 @@ def phase_parallel(frames, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+# Phase 14 serves every configuration of FORMS_CONFIGS in each serving form
+# (apps.common) at BATCH, bf16, on phase 4's frames: monolithic, staged
+# under each MFF merge (Hu2018), the depthwise modes "xla" and "shift"
+# (EfficientNet encoders); at each of BIG_BATCHES (phase 4's frames
+# repeated) the monolithic form in one call and, below the last, in tiles
+# of half the batch (at the first also tiled-staged), BIG_ITERS timed calls
+# after the counted one, a run out of device memory recorded as such; the
+# int8 sites and forwards of INT8_CONFIGS; and the autotuner on
+# TUNE_CONFIGS and on the ENB0-HU training step.
+FORMS_CONFIGS = ("ENB0-HU", "ENB0-LR", *RANDOM_CONFIGS)
+BIG_BATCHES = (2 * BATCH, 4 * BATCH, 8 * BATCH)
+BIG_ITERS = 2
+INT8_CONFIGS = ("RN50-HU", "SN154-HU", "DN161-HU", "ENB0-HU")
+# rel_out_err of an int8 forward against the float form of the same model
+# (the norm of the difference over the float output's): the JAX package's
+# ceiling for its int8 conv tower (tests/test_quant.py). A CPU run of the
+# port in f32 at 228x304 on two frames shows 0.022 (RN50-HU), 0.016
+# (SN154-HU) and 0.0003 (DN161-HU).
+INT8_REL_MAX = 0.03
+INT8_GRAPH_ITERS, INT8_GRAPH_REPLAYS = 3, 2
+INT8_WARMUP, INT8_ITERS = 1, 3
+TUNE_CONFIGS = ("ENB0-HU", "RN50-HU")
+# The autotuners' calls a candidate (after one untimed call): serving,
+# then training steps.
+TUNE_WARMUP, TUNE_ITERS = 1, 3
+TRAIN_TUNE_WARMUP, TRAIN_TUNE_ITERS = 0, 2
+
+
+def forms_model(name: str) -> tuple[torch.nn.Module, tuple[int, int]]:
+    """A configuration on the card as phases 4, 7 and 8 build it, and the
+    launches of its forward (depthwise, upsample-conv)."""
+    if name == "ENB0-HU":
+        return load_any_checkpoint(CHECKPOINT, device=DEVICE), ENB0_HU_LAUNCHES
+    if name == "ENB0-LR":
+        return load_any_checkpoint(LR_CHECKPOINT, device=DEVICE), (16, 0)
+    return random_model(name), RANDOM_CONFIGS[name][3]
+
+
+def form_specs(name: str, model) -> list[tuple[str, dict]]:
+    specs = [("monolithic", dict(path="monolithic", dw_impl="pallas"))]
+    if isinstance(model, HuDepthModel):
+        specs += [(f"staged/{m}", dict(path="staged", dw_impl="pallas",
+                                       mff_merge=m)) for m in MFF_MERGES]
+    if name.startswith("ENB"):
+        specs += [(f"monolithic/{dw}", dict(path="monolithic", dw_impl=dw))
+                  for dw in ("xla", "shift")]
+    return specs
+
+
+def form_error(name: str, out: torch.Tensor, ref: torch.Tensor,
+               what: str) -> tuple[float, float]:
+    """Max and mean |out - ref| within phase 5's bf16 tolerances: in
+    metres for the two trained models, relative to max|ref| for the
+    random ones."""
+    err = (out - ref).abs()
+    e_max, e_mean = err.max().item(), err.mean().item()
+    if name == "ENB0-HU":
+        limit = BF16_MODEL_MAX_ABS, BF16_MODEL_MEAN_ABS
+    elif name == "ENB0-LR":
+        limit = BF16_LR_MAX_ABS, BF16_LR_MEAN_ABS
+    else:
+        scale = ref.abs().max().item()
+        e_max, e_mean = e_max / scale, e_mean / scale
+        limit = BF16_RANDOM_MAX_REL, BF16_RANDOM_MEAN_REL
+    if not (e_max <= limit[0] and e_mean <= limit[1]):
+        raise RuntimeError(f"{name} {what}: max {e_max} mean {e_mean}, "
+                           f"limits {limit}")
+    return e_max, e_mean
+
+
+def batch_rate(serve, frames, warmup: int, iters: int) -> dict:
+    """frames/s on the host clock over ``iters`` calls after ``warmup``,
+    and the peak device memory of those calls."""
+    for _ in range(warmup):
+        serve(frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        serve(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(frames_per_s=frames.shape[0] * iters / dt,
+                ms_per_batch=1e3 * dt / iters,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def serving_form_fn(model, spec: dict):
+    return build_serving_candidate(model, spec, upsample_to=FRAME_HW,
+                                   dtype=torch.bfloat16, preprocess=True,
+                                   device=DEVICE)
+
+
+def int8_sites(model) -> list[dict]:
+    """The convs an int8 bf16 forward of one INPUT_HW image quantizes
+    (every call of ``ops.quant.quant_conv2d``, recorded), one a shape."""
+    sites, saved = {}, quant.quant_conv2d
+
+    def record(x, weight, *, stride=(1, 1), padding=((0, 0), (0, 0)),
+               bias=None):
+        key = (tuple(x.shape[1:]), tuple(weight.shape), tuple(stride),
+               tuple(map(tuple, padding)))
+        site = sites.setdefault(key, dict(
+            hw=tuple(x.shape[1:3]), cin=x.shape[-1], weight=weight,
+            stride=tuple(stride), padding=padding, bias=bias, count=0))
+        site["count"] += 1
+        return saved(x, weight, stride=stride, padding=padding, bias=bias)
+
+    quant.quant_conv2d = record
+    try:
+        make_infer_fn(model, dtype=torch.bfloat16, int8=True, device=DEVICE)(
+            torch.zeros(1, *INPUT_HW, 3, device=DEVICE))
+    finally:
+        quant.quant_conv2d = saved
+    return list(sites.values())
+
+
+def int8_site_times(name: str, model, card) -> list[dict]:
+    """Each int8 site at BATCH: the int8 conv (quantize, one _int_mm a tap,
+    dequantize) against the bf16 cuDNN conv on the same input and weight,
+    each by CUDA-graph replay."""
+    gen = torch.Generator(DEVICE).manual_seed(14)
+    rows = []
+    for s in int8_sites(model):
+        h, w = s["hw"]
+        x = torch.randn(BATCH, h, w, s["cin"], generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        kw = dict(stride=s["stride"], padding=s["padding"], bias=s["bias"])
+        with torch.inference_mode():
+            q_ms = graph_ms(lambda: quant.quant_conv2d(x, s["weight"], **kw),
+                            INT8_GRAPH_ITERS, INT8_GRAPH_REPLAYS)
+            f_ms = graph_ms(lambda: conv2d(x, s["weight"], **kw),
+                            INT8_GRAPH_ITERS, INT8_GRAPH_REPLAYS)
+        co, ci, kh, kwd = s["weight"].shape
+        rows.append(dict(x=(BATCH, h, w, ci), weight=(co, ci, kh, kwd),
+                         stride=s["stride"], count=s["count"],
+                         int8_ms=q_ms, bf16_ms=f_ms))
+        log("14 forms", f"{card}: {name} int8 site x {rows[-1]['x']} "
+            f"weight {rows[-1]['weight']} stride {s['stride']} "
+            f"(x{s['count']} a forward): int8 {q_ms:.3f} ms, bf16 cuDNN "
+            f"{f_ms:.3f} ms (graph replay), speed-up {f_ms / q_ms:.2f}")
+        del x
+    return rows
+
+
+def forms_int8(name: str, model, expected, frames, ref, card) -> dict:
+    """int8 sites' times, then the int8 forward: launches (a kernel site
+    the gate quantizes runs the resize and the int8 conv instead of the
+    kernel), frames/s, rel_out_err against the float monolithic output."""
+    sites = int8_site_times(name, model, card)
+    _, up_sites, _ = main_path_sites(model)
+    with quantized_convs():
+        up_int8 = sum(should_quantize((5, 5, s["c"], s["o"]), 1, (1, 1))
+                      for s in up_sites)
+    serve = make_infer_fn(model, upsample_to=FRAME_HW, dtype=torch.bfloat16,
+                          preprocess=True, device=DEVICE, int8=True)
+    out, launches = serve_counted(serve, frames, f"{name} int8",
+                                  (expected[0], expected[1] - up_int8))
+    rel = float(torch.linalg.vector_norm(out - ref)
+                / torch.linalg.vector_norm(ref))
+    del out
+    if not rel <= INT8_REL_MAX:
+        raise RuntimeError(f"{name} int8 rel_out_err {rel} > {INT8_REL_MAX}")
+    rate = batch_rate(serve, frames, INT8_WARMUP, INT8_ITERS)
+    log("14 forms", f"{card}: {name} int8 serving {BATCH}x{FRAME_HW} bf16: "
+        f"{rate['frames_per_s']:.1f} frames/s ({rate['ms_per_batch']:.2f} ms "
+        f"a batch, {INT8_ITERS} calls after {INT8_WARMUP}), peak "
+        f"{rate['peak_gib']:.2f} GiB")
+    log("14 forms", f"{name} int8: {len(sites)} site shapes, "
+        f"{sum(s['count'] for s in sites)} convs a forward "
+        f"({up_int8} of them kernel sites); launches {launches}; "
+        f"rel_out_err {rel:.4g} (<= {INT8_REL_MAX})")
+    return dict(sites=sites, launches=launches, rel_out_err=rel, **rate)
+
+
+def forms_config(name: str, frames, fx_up, card) -> dict:
+    """Every form of one configuration at BATCH, then at BIG_BATCHES, the
+    serving rule, its int8 form where it is one of INT8_CONFIGS and the
+    autotuner where it is one of TUNE_CONFIGS."""
+    model, expected = forms_model(name)
+    out, ref = {}, None
+    for label, spec in form_specs(name, model):
+        serve = serving_form_fn(model, spec)
+        exp = expected if spec["dw_impl"] == "pallas" else (0, expected[1])
+        y, launches = serve_counted(serve, frames, f"{name} {label}", exp)
+        row = dict(launches=launches)
+        if ref is None:
+            ref = y
+        else:
+            row["max_err"], row["mean_err"] = form_error(
+                name, y, ref, f"{label} vs monolithic")
+        if fx_up is not None:
+            row["fixture_max_abs_m"], row["fixture_mean_abs_m"] = form_error(
+                name, y[:4], fx_up, f"{label} vs the JAX fixture")
+        del y
+        row.update(serving_rate(serve, frames, card, "14 forms",
+                                f"{name} {label}", top_ops=False))
+        log("14 forms", f"{name} {label}: launches {launches}"
+            + (f", vs monolithic max {row['max_err']:.3g} mean "
+               f"{row['mean_err']:.3g}" if "max_err" in row else "")
+            + (f", vs JAX fixture max {row['fixture_max_abs_m']:.3g} m"
+               if fx_up is not None else ""))
+        out[label] = row
+        del serve
+    for batch in BIG_BATCHES:
+        out[f"b{batch}"] = forms_big(name, model, expected, frames, batch,
+                                     card)
+    rule_batches = (BATCH, *BIG_BATCHES, 2 * BIG_BATCHES[-1])
+    for batch in rule_batches:
+        spec = make_serving_fn(model, batch_hint=batch, dtype=torch.bfloat16,
+                               device=DEVICE).spec
+        if {k: spec[k] for k in ("path", "tile_batch") if k in spec} != \
+                serving_form(batch):
+            raise RuntimeError(f"{name}: make_serving_fn at batch {batch} "
+                               f"built {spec}")
+    out["rule"] = {b: serving_form(b) for b in rule_batches}
+    log("14 forms", f"{name}: make_serving_fn's rule serves " + ", ".join(
+        f"batch {b} {f}" for b, f in out["rule"].items()))
+    if name in INT8_CONFIGS:
+        out["int8"] = forms_int8(name, model, expected, frames, ref, card)
+    if name in TUNE_CONFIGS:
+        out["autotune"] = forms_autotune(name, model, card)
+    return out
+
+
+def forms_big(name: str, model, expected, frames, batch: int, card
+              ) -> dict:
+    """One configuration at ``batch`` frames (``frames`` repeated): the
+    monolithic form in one call and, below the last of BIG_BATCHES, in
+    tiles of half the batch (at the first, tiled-staged too): launches,
+    frames/s, peak memory, or that the card's memory did not hold it."""
+    big = frames.repeat(batch // BATCH, 1, 1, 1)
+    specs = [("monolithic", dict(path="monolithic", dw_impl="pallas"))]
+    if batch < BIG_BATCHES[-1]:
+        specs.append(("tiled", dict(path="tiled", dw_impl="pallas",
+                                    tile_batch=batch // 2)))
+    if batch == BIG_BATCHES[0] and isinstance(model, HuDepthModel):
+        specs.append(("tiled-staged", dict(path="tiled-staged",
+                                           dw_impl="pallas",
+                                           tile_batch=batch // 2)))
+    out = {}
+    for label, spec in specs:
+        serve = serving_form_fn(model, spec)
+        tiles = 2 if label.startswith("tiled") else 1
+        try:
+            _, launches = serve_counted(serve, big, f"{name} {label} b{batch}",
+                                        (tiles * expected[0],
+                                         tiles * expected[1]))
+            rate = batch_rate(serve, big, 0, BIG_ITERS)
+        except torch.OutOfMemoryError:
+            del serve
+            torch.cuda.empty_cache()
+            out[label] = dict(out_of_memory=True)
+            log("14 forms", f"{card}: {name} {label} at batch {batch}: out "
+                "of device memory")
+            continue
+        out[label] = dict(launches=launches, **rate)
+        log("14 forms", f"{card}: {name} {label} at batch {batch}"
+            + (f" (tiles of {batch // 2})" if tiles > 1 else "")
+            + f": {rate['frames_per_s']:.1f} frames/s "
+            f"({rate['ms_per_batch']:.2f} ms a batch), peak "
+            f"{rate['peak_gib']:.2f} GiB, launches {launches}")
+        del serve
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
+def forms_autotune(name: str, model, card) -> dict:
+    """``autotune_serving`` at BATCH in bf16 into a policy of its own, then
+    ``make_serving_fn`` from that policy must serve the winner."""
+    with tempfile.TemporaryDirectory() as tmp:
+        policy = os.path.join(tmp, "serving_policy.json")
+        _, entry = autotune_serving(model, BATCH, dtype=torch.bfloat16,
+                                    policy_path=policy, verbose=False,
+                                    warmup=TUNE_WARMUP, iters=TUNE_ITERS,
+                                    device=DEVICE)
+        served = make_serving_fn(model, batch_hint=BATCH,
+                                 dtype=torch.bfloat16, policy_path=policy,
+                                 device=DEVICE)
+    won = {k: entry[k] for k in ("path", "dw_impl", "int8")}
+    if {k: served.spec.get(k, False) for k in won} != won:
+        raise RuntimeError(f"{name}: make_serving_fn served {served.spec}, "
+                           f"the policy's winner is {won}")
+    log("14 forms", f"{card}: {name} autotune_serving at batch {BATCH} "
+        "bf16 (normalized f32 images in, no upsample), frames/s: "
+        + ", ".join(f"{r['candidate']} {r['fps']}" for r in entry["measured"])
+        + f"; winner {won}, served by make_serving_fn from the policy")
+    return dict(winner=won, measured=entry["measured"])
+
+
+def forms_train_autotune(card) -> dict:
+    """``autotune_train`` for ENB0-HU at TRAIN_BATCH in bf16, then the
+    training CLI's resolution of ``--train-policy`` must give the
+    winner."""
+    with tempfile.TemporaryDirectory() as tmp:
+        policy = os.path.join(tmp, "train_policy.json")
+        entry = autotune_train("efficientnet-b0", "hu2018", TRAIN_BATCH,
+                               bf16=True, policy_path=policy, verbose=False,
+                               warmup=TRAIN_TUNE_WARMUP,
+                               iters=TRAIN_TUNE_ITERS, device=DEVICE)
+        args = train_app.parse_args([
+            "--encoder", "efficientnet-b0", "--decoder", "hu2018",
+            "--per-device-batch", str(TRAIN_BATCH), "--bf16",
+            "--train-policy", policy])
+        accum, remat, source = train_app.train_policy(args,
+                                                      torch.device(DEVICE))
+    won = (entry["accum_steps"], entry["remat"])
+    if (accum, remat) != won or not source.startswith("policy"):
+        raise RuntimeError(f"--train-policy resolved to {accum}, {remat} "
+                           f"({source}); the winner is {won}")
+    log("14 forms", f"{card}: ENB0-HU autotune_train at batch {TRAIN_BATCH} "
+        "bf16, images/s: " + ", ".join(f"{r['candidate']} {r['img_per_s']}"
+                                       for r in entry["measured"])
+        + f"; winner accum {won[0]} remat {won[1]}, which the training "
+        f"CLI's --train-policy resolves to ({source})")
+    return dict(winner=dict(accum_steps=won[0], remat=won[1]),
+                measured=entry["measured"])
+
+
+def phase_forms(frames, card) -> dict:
+    """14: the serving forms (see FORMS_CONFIGS)."""
+    t0 = time.perf_counter()
+    fx = np.load(FIXTURE)
+    fx_up = resize_bilinear_align_corners(
+        torch.from_numpy(fx["depth"]).to(DEVICE)[..., None], FRAME_HW)
+    out = {name: forms_config(name, frames, fx_up if name == "ENB0-HU"
+                              else None, card)
+           for name in FORMS_CONFIGS}
+    out["train_autotune"] = forms_train_autotune(card)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card
+    summary = {name: {label: round(r["frames_per_s"], 1)
+                      for label, r in out[name].items()
+                      if isinstance(r, dict) and "frames_per_s" in r}
+               for name in FORMS_CONFIGS}
+    log("14 forms", f"{card}: frames/s at batch {BATCH} by form: "
+        + json.dumps(summary))
+    log("14 forms", f"ok: phase 14 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3866,6 +4268,7 @@ def main() -> int:
     training = phase_train_cli(frames, card)
     benchmark = phase_benchmark(card)
     parallel = phase_parallel(frames, card)
+    forms = phase_forms(frames, card)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -3893,6 +4296,7 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"forms": forms}))
     print(json.dumps({"native": native_info}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"routes": routes}))

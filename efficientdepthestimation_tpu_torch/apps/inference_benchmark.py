@@ -18,7 +18,10 @@ under a launcher (``torchrun --nproc-per-node N -m ... --data-parallel``):
 each rank decodes and forwards only its rows of every batch (``-b`` is the
 global batch, which the ranks must divide), and rank 0 reports the slowest
 rank's times and writes the summary. ``--spatial`` (image rows across
-cards) is not ported: ROADMAP A11b.
+cards) is not ported: ROADMAP A11b. ``--policy`` serves each checkpoint in
+the form the autotuner measured fastest for ``-b`` frames a call
+(``apps.autotune``), else in the form ``make_serving_fn``'s rule picks;
+``--dw-impl`` selects the depthwise mode of EfficientNet encoders.
 """
 
 from __future__ import annotations
@@ -74,12 +77,15 @@ def _batches(dataset, batch_size: int, mesh):
 
 
 def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
-                         bf16: bool = False, device=None, mesh=None):
+                         bf16: bool = False, device=None, mesh=None,
+                         dw_impl: str = "pallas", policy: str | None = None):
     """One trial: ``(load, first call, inference)`` as ``timedelta``s, and
     ``(peak bytes, source)`` of ``utils.profiling.peak_memory``, for the
     frames of ``dataset`` (uint8 images) served by the checkpoint on
     ``device`` (the CUDA card unless ``"cpu"``; the mesh's device under
-    ``mesh``, where each rank decodes and serves its rows of each batch)."""
+    ``mesh``, where each rank decodes and serves its rows of each batch),
+    through ``make_serving_fn`` with ``batch_hint=batch_size``, ``dw_impl``
+    and the serving policy ``policy``."""
     if device is None and mesh is not None:
         device = mesh.device
     device = resolve_device(device)
@@ -94,7 +100,8 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
     infer = make_serving_fn(model, upsample_to=tuple(frames.shape[1:3]),
                             dtype=torch.bfloat16 if bf16 else None,
                             preprocess=True, device=device, mesh=mesh,
-                            local_rows=True)
+                            local_rows=True, batch_hint=batch_size,
+                            dw_impl=dw_impl, policy_path=policy)
     first_call_timer = Timer()
     with first_call_timer:
         float(infer(frames).sum())  # a host read waits for the device
@@ -113,13 +120,15 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
 
 
 def benchmark_row(dataset, model_path: str, trial: int, batch_size: int = 8,
-                  bf16: bool = False, device=None, mesh=None) -> dict:
+                  bf16: bool = False, device=None, mesh=None,
+                  dw_impl: str = "pallas", policy: str | None = None) -> dict:
     """One trial of ``benchmark_checkpoint`` as a row of the summary's
     input: seconds, the frame time over the dataset, memory and its
     source. Under a mesh of several ranks each figure is the slowest (the
     largest) rank's, on every rank."""
     load_t, first_t, infer_t, peak, mem_source = benchmark_checkpoint(
-        dataset, model_path, batch_size, bf16=bf16, device=device, mesh=mesh)
+        dataset, model_path, batch_size, bf16=bf16, device=device, mesh=mesh,
+        dw_impl=dw_impl, policy=policy)
     times = [load_t.total_seconds(), first_t.total_seconds(),
              infer_t.total_seconds(), float(peak)]
     if mesh is not None and mesh.distributed:
@@ -186,9 +195,7 @@ def write_summary(summary: dict[str, dict], output_dir: str) -> None:
 
 def main(args: Optional[List[str]] = None):
     parser = argparse.ArgumentParser(
-        description="Per-checkpoint fps/memory benchmark. The port has one "
-                    "depthwise lowering, its CUDA kernel, so the JAX "
-                    "package's --dw-impl is not a flag here.")
+        description="Per-checkpoint fps/memory benchmark")
     parser.add_argument("-c", "--checkpoint-dir", required=True, type=str)
     parser.add_argument("-f", "--frames-dir", required=True, type=str)
     parser.add_argument("-n", "--num-trials", default=5, type=int)
@@ -203,17 +210,21 @@ def main(args: Optional[List[str]] = None):
                              "which the ranks must divide")
     parser.add_argument("--spatial", action="store_true",
                         help="not ported: ROADMAP A11b")
+    parser.add_argument("--dw-impl", default="pallas",
+                        choices=("pallas", "xla", "shift"),
+                        help="depthwise mode of EfficientNet encoders: the "
+                             "hand-written kernel (depthwise conv, BN, swish "
+                             "and the SE sums in one launch; the default), "
+                             "cuDNN's grouped conv, or the per-tap sum; the "
+                             "same function")
     parser.add_argument("--policy", default=None, type=str,
-                        help="not ported: ROADMAP A13")
+                        help="serving-policy JSON of `ede-torch-autotune`")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device (default: the CUDA card; 'cpu' "
                              "runs the kernels' plain versions)")
     args = parser.parse_args(args)
     if args.spatial:
         raise NotImplementedError(SPATIAL_NOT_PORTED)
-    if args.policy is not None:
-        raise NotImplementedError("serving policies are not ported yet: "
-                                  "ROADMAP item A13")
 
     mesh = None
     if args.data_parallel:
@@ -229,7 +240,8 @@ def main(args: Optional[List[str]] = None):
         print(path)
         for trial in range(args.num_trials):
             row = benchmark_row(dataset, path, trial, args.batch_size,
-                                bf16=args.bf16, device=args.device, mesh=mesh)
+                                bf16=args.bf16, device=args.device, mesh=mesh,
+                                dw_impl=args.dw_impl, policy=args.policy)
             rows.append(row)
             print(f"  trial {trial + 1}/{args.num_trials}: "
                   f"load {row['load_time']:.2f}s "

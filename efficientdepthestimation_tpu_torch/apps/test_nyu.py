@@ -85,14 +85,11 @@ def main(args: Optional[List[str]] = None):
     parser.add_argument("-o", "--output-dir", default="nyu_depth_out",
                         type=str)
     parser.add_argument("--policy", default=None, type=str,
-                        help="serving-policy JSON (not ported: ROADMAP A13)")
+                        help="serving-policy JSON of `ede-torch-autotune`")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device (default: the CUDA card; 'cpu' "
                              "runs the kernels' plain versions)")
     args = parser.parse_args(args)
-    if args.policy is not None:
-        raise NotImplementedError("serving policies are not ported yet: "
-                                  "ROADMAP item A13")
 
     dataset = DepthPairDataset(args.test_csv, is_test=True)
     for filename in sorted(os.listdir(args.checkpoint_dir)):
@@ -104,7 +101,9 @@ def main(args: Optional[List[str]] = None):
         model = load_any_checkpoint(
             os.path.join(args.checkpoint_dir, filename), device=args.device)
         serve = make_serving_fn(model, upsample_to=FRAME_HW, preprocess=True,
-                                device=args.device)
+                                device=args.device,
+                                batch_hint=args.batch_size,
+                                policy_path=args.policy)
         index = 0
         with AsyncImageWriter() as writer:
             for batch in batch_iterator(dataset, args.batch_size,

@@ -22,8 +22,10 @@ process drives one device of a data-parallel mesh (``parallel``): the batch
 is ``--per-device-batch`` × the data axis, each rank decodes only its rows,
 the BatchNorm statistics, loss, gradients and metrics are the global
 batch's, and ``--zero1`` shards Adam's moments over the ranks. Rank 0
-alone logs and writes. ``--train-policy`` (the autotuner's policies) is
-ROADMAP A13.
+alone logs and writes. ``--accum-steps`` and ``--remat`` come from the
+flags, else from the autotuner's measured policy (``--train-policy``, or
+``runs/train_policy.json`` when it exists; ``apps.autotune``), else accum 1
+and no remat.
 """
 
 from __future__ import annotations
@@ -38,6 +40,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from efficientdepthestimation_tpu_torch.apps.autotune import (
+    TRAIN_POLICY_PATH,
+    apply_train_policy,
+)
 from efficientdepthestimation_tpu_torch.apps.common import (
     load_any_checkpoint,
     resolve_device,
@@ -80,8 +86,8 @@ from efficientdepthestimation_tpu_torch.utils.profiling import peak_memory
 from efficientdepthestimation_tpu_torch.utils.run_logger import RunLogger
 from efficientdepthestimation_tpu_torch.utils.timer import Timer
 
-__all__ = ["parse_args", "main", "epoch_seed", "run_train_epoch",
-           "run_eval_epoch"]
+__all__ = ["parse_args", "main", "train_policy", "epoch_seed",
+           "run_train_epoch", "run_eval_epoch"]
 
 EFFICIENTNET_NAMES = [f"efficientnet-b{i}" for i in range(9)]
 RESNET_NAMES = [f"resnet{i}" for i in (18, 50, 101, 152)]
@@ -151,11 +157,12 @@ def parse_args(args: Optional[List[str]] = None):
                         choices=("auto", "none", "dots", "full"),
                         help="Recompute the forward in the backward pass "
                              "(torch.utils.checkpoint): 'full', or 'dots', "
-                             "which keeps conv and matmul outputs. 'auto' "
-                             "is none while --train-policy is not ported.")
+                             "which keeps conv and matmul outputs. 'auto': "
+                             "a measured --train-policy applies, else none.")
     parser.add_argument("--train-policy", default=None, type=str,
-                        help="Train-policy JSON of the autotuner: ROADMAP "
-                             "A13, not ported yet.")
+                        help="Train-policy JSON of `ede-torch-autotune "
+                             "--train` (default: runs/train_policy.json "
+                             "when it exists).")
     parser.add_argument("--cache-ram", action="store_true",
                         help="Keep decoded images in RAM after the first "
                              "epoch (~1.2 GB per 1000 NYU-sized pairs).")
@@ -252,11 +259,23 @@ def _model(args, crop: tuple[int, int]) -> torch.nn.Module:
                            input_size=crop)
 
 
+def train_policy(args, device) -> tuple[int, str | None, str]:
+    """(accum_steps, remat, source) of the flags ``args``: the explicit
+    flags, else the entry of ``--train-policy`` (``runs/train_policy.json``
+    when that exists) for this device, family, per-device batch and dtype,
+    else accum 1 and no remat (``apps.autotune.apply_train_policy``). A
+    policy's source names its file."""
+    path = args.train_policy or (
+        TRAIN_POLICY_PATH if os.path.isfile(TRAIN_POLICY_PATH) else None)
+    accum, remat, source = apply_train_policy(
+        path, args.encoder, args.decoder, args.per_device_batch,
+        torch.bfloat16 if args.bf16 else None, args.accum_steps, args.remat,
+        device=device)
+    return accum, remat, (f"policy {path}" if source == "policy" else source)
+
+
 def main(args: Optional[List[str]] = None):
     args = parse_args(args)
-    if args.train_policy:
-        raise NotImplementedError("--train-policy (the autotuner's policies) "
-                                  "is not ported yet (ROADMAP A13)")
     if args.init_from and args.resume:
         raise SystemExit("--init-from and --resume are mutually exclusive: "
                          "--resume restores the optimizer exactly, "
@@ -309,8 +328,10 @@ def main(args: Optional[List[str]] = None):
         # and so the LR schedule, starts at 0.
         state.step = args.start_epoch * steps_per_epoch
 
-    accum_steps = args.accum_steps or 1
-    remat = None if args.remat in ("auto", "none") else args.remat
+    accum_steps, remat, policy_source = train_policy(args, device)
+    if is_main:
+        print(f"train policy from {policy_source}: accum_steps="
+              f"{accum_steps} remat={remat}")
     train_step = make_train_step(mixed_precision=args.bf16, crop_hw=crop,
                                  split_preprocess=args.split_preprocess,
                                  remat=remat, accum_steps=accum_steps,

@@ -6,9 +6,12 @@ efficientnet-pytorch 0.6.3 behaviour (MBConv blocks, swish, BatchNorm eps
 resolution, drop-connect) with the reference's four encoder taps. In eval
 each block's depthwise conv, BatchNorm, swish and squeeze-excite mean run as
 one ``depthwise_bn_swish`` kernel launch, as ``efficientnet_apply_fused``
-does in the JAX package. In training, where BatchNorm uses batch statistics
-and cannot be folded, the depthwise conv is a plain grouped conv, as the JAX
-package's ``MBConvBlock`` trains through XLA's.
+does in the JAX package, unless ``ops.conv.depthwise_impl`` selects the
+"xla" or "shift" form, which run the conv (cuDNN's grouped conv, or the
+per-tap sum), the BN on running statistics and swish as ops of their own.
+In training, where BatchNorm uses batch statistics and cannot be folded,
+the depthwise conv is a plain grouped conv, as the JAX package's
+``MBConvBlock`` trains through XLA's.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ from efficientdepthestimation_tpu_torch.models.common import (
     Conv,
     per_sample_uniform,
 )
-from efficientdepthestimation_tpu_torch.ops.conv import same_padding_static
+from efficientdepthestimation_tpu_torch.ops.conv import (
+    depthwise_mode,
+    same_padding_static,
+)
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
 )
@@ -140,8 +146,8 @@ class MBConvBlock(nn.Module):
                 keep: float = 1.0) -> torch.Tensor:
         """``drop_mask`` (N, 1, 1, 1) of 0/1 in x's dtype, training only:
         drop-connect ``x / keep * drop_mask`` on the residual branch."""
-        if self.training:
-            return self._forward_train(x, drop_mask, keep)
+        if self.training or depthwise_mode() != "pallas":
+            return self._forward_unfused(x, drop_mask, keep)
         inputs = x
         if self.expand != 1:
             x = F.silu(self._bn0(self._expand_conv(x)))
@@ -160,10 +166,11 @@ class MBConvBlock(nn.Module):
             x = x + inputs
         return x
 
-    def _forward_train(self, x, drop_mask, keep):
-        """``MBConvBlock.__call__(train=True)`` of the JAX package
-        (``models/efficientnet.py:146-180``): batch statistics, and the
-        depthwise conv as a grouped conv."""
+    def _forward_unfused(self, x, drop_mask, keep):
+        """``MBConvBlock.__call__`` of the JAX package
+        (``models/efficientnet.py:146-180``): the depthwise conv as
+        ``ops.conv.conv2d`` computes it, and the BNs on batch statistics in
+        training, on running ones in eval."""
         inputs = x
         if self.expand != 1:
             x = F.silu(self._bn0(self._expand_conv(x)))

@@ -8,6 +8,14 @@ pass over branch-stacked kernels: through the exact einsum rewrite
 through the hand-written ``upsample_conv`` kernel, whose gradient is the
 VJP of the plain composition. ``module.train()`` selects batch statistics in
 every BatchNorm, as ``train=True`` does in the JAX package.
+
+Under ``ops.quant.quantized_convs`` a kernel site whose stacked
+(5, 5, cin, 2·features) conv passes the int8 gate is computed as the resize,
+then the int8 conv: the JAX package quantizes the conv of its direct
+composition there, and the kernel has no int8 form. The einsum route stays
+float in both packages. ``mff_apply_merged`` runs the eval MFF with its four
+branch tails merged into one 64-channel stream (``HuDepthModel``'s
+``mff_merge``).
 """
 
 from __future__ import annotations
@@ -19,13 +27,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from efficientdepthestimation_tpu_torch.models.common import BatchNorm, Conv
+from efficientdepthestimation_tpu_torch.ops import quant
+from efficientdepthestimation_tpu_torch.ops.conv import conv2d
 from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
     upsample_conv_pair,
 )
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import upsample_conv
+from efficientdepthestimation_tpu_torch.ops.norm import batch_norm
+from efficientdepthestimation_tpu_torch.ops.resize import (
+    resize_bilinear_align_corners,
+)
 
-__all__ = ["UpProjection", "DecoderD", "MFF", "RefineR", "HuDepthModel"]
+__all__ = ["UpProjection", "DecoderD", "MFF", "RefineR", "HuDepthModel",
+           "mff_apply_merged"]
 
 
 def _hwio(weight: torch.Tensor) -> torch.Tensor:
@@ -46,17 +61,26 @@ class UpProjection(nn.Module):
         self.bn1_2 = BatchNorm(features)
         self.bn2 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-        f = self.features
+    def heads(self, x: torch.Tensor, size: tuple[int, int]
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Both branches' 5×5 convs of ``upsample(x, size)``, before their
+        BatchNorms, by the site's route."""
+        f, cin = self.features, x.shape[-1]
         k1 = _hwio(self.conv1.weight).to(x.dtype)
         k2 = _hwio(self.conv2.weight).to(x.dtype)
-        if should_fuse(tuple(x.shape[1:3]), tuple(size), x.shape[-1], f,
-                       x.dtype):
-            b1, b2 = upsample_conv_pair(x, k1, k2, size)
+        if should_fuse(tuple(x.shape[1:3]), tuple(size), cin, f, x.dtype):
+            return upsample_conv_pair(x, k1, k2, size)
+        if quant.should_quantize((5, 5, cin, 2 * f), 1, (1, 1)):
+            w = torch.cat([self.conv1.weight, self.conv2.weight])
+            b = quant.quant_conv2d(resize_bilinear_align_corners(x, size),
+                                   w.to(x.dtype), padding=((2, 2), (2, 2)))
         else:
             b = upsample_conv(x, torch.cat([k1, k2], dim=-1).contiguous(),
                               size)
-            b1, b2 = b[..., :f], b[..., f:]
+        return b[..., :f], b[..., f:]
+
+    def forward(self, x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+        b1, b2 = self.heads(x, size)
         b1 = self.bn1_2(self.conv1_2(F.relu(self.bn1(b1))))
         return F.relu(b1 + self.bn2(b2))
 
@@ -101,6 +125,45 @@ class MFF(nn.Module):
         return F.relu(self.bn(self.conv(torch.cat(ups, dim=-1))))
 
 
+def mff_apply_merged(mff: MFF, taps: Sequence[torch.Tensor],
+                     size: tuple[int, int], *,
+                     block_diag: bool = False) -> torch.Tensor:
+    """The eval forward of ``mff`` with its four branch tails merged.
+
+    The same function as ``mff(taps, size)`` in eval, from the same
+    module, weights and running statistics (JAX ``models/hu2018.py:118-185``):
+    each branch's 5×5 heads stay apart (each tap has its own resolution and
+    route), then the four 16-channel tails run as one 64-channel stream:
+    the branches' BNs concatenated (channelwise, so concatenation commutes),
+    one 3×3 conv over the four ``conv1_2`` weights as a 4-group conv
+    (``block_diag=True``: one dense 64×64 block-diagonal weight instead, 4×
+    the operations, zeros off the blocks), BN, add, ReLU.
+    """
+    ups = [getattr(mff, f"up{i + 1}") for i in range(len(taps))]
+    heads = [up.heads(tap, size) for up, tap in zip(ups, taps)]
+
+    def cat_bn(x, name):
+        folds = [getattr(up, name).folded() for up in ups]
+        return batch_norm(x, torch.cat([s for s, _ in folds]),
+                          torch.cat([b for _, b in folds]))
+
+    x1 = F.relu(cat_bn(torch.cat([h[0] for h in heads], dim=-1), "bn1"))
+    ws = [up.conv1_2.weight for up in ups]  # each (co, co, 3, 3)
+    co = ws[0].shape[0]
+    if block_diag:
+        w = ws[0].new_zeros(len(ws) * co, len(ws) * co, 3, 3)
+        for i, wi in enumerate(ws):
+            w[i * co:(i + 1) * co, i * co:(i + 1) * co] = wi
+        x1 = conv2d(x1, w.to(x1.dtype), padding=1)
+    else:
+        x1 = conv2d(x1, torch.cat(ws).to(x1.dtype), padding=1,
+                    groups=len(ws))
+    x1 = cat_bn(x1, "bn1_2")
+    x2 = cat_bn(torch.cat([h[1] for h in heads], dim=-1), "bn2")
+    x = F.relu(x1 + x2)
+    return F.relu(mff.bn(mff.conv(x)))
+
+
 class RefineR(nn.Module):
     """Two 5×5 conv+BN+ReLU, then a 5×5 conv to one depth channel."""
 
@@ -134,10 +197,25 @@ class HuDepthModel(nn.Module):
         self.R = RefineR(block_channel[3])
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                mff_merge: str = "module") -> torch.Tensor:
         """``generator`` draws the encoder's drop-connect masks in
-        training."""
+        training. ``mff_merge`` "grouped" or "blockdiag" runs the eval MFF
+        through ``mff_apply_merged``, "module" as it is.
+
+        Each intermediate is released at its last reader, the taps after
+        MFF, D's and MFF's outputs once R's input is built, so an eval
+        forward's peak is not its whole working set (autograd keeps what
+        the backward needs)."""
         taps = self.E(x, generator=generator)
         x_d = self.D(taps)
-        x_mff = self.MFF(taps, tuple(x_d.shape[1:3]))
-        return self.R(torch.cat([x_d, x_mff], dim=-1))
+        size = tuple(x_d.shape[1:3])
+        if mff_merge == "module":
+            x_mff = self.MFF(taps, size)
+        else:
+            x_mff = mff_apply_merged(self.MFF, taps, size,
+                                     block_diag=mff_merge == "blockdiag")
+        del taps
+        x = torch.cat([x_d, x_mff], dim=-1)
+        del x_d, x_mff
+        return self.R(x)

@@ -16,6 +16,9 @@ import torch
 __all__ = [
     "bilinear_align_corners_matrix",
     "resize_bilinear_align_corners",
+    "upsample_align_corners",
+    "resize_nearest_torch",
+    "nearest_torch_indices",
     "pil_resize_matrix",
     "pil_nearest_indices",
     "pil_resize",
@@ -140,6 +143,33 @@ def resize_bilinear_align_corners(x: torch.Tensor,
         device_constant(bilinear_align_corners_matrix, h_in, h_out, **kw),
         device_constant(bilinear_align_corners_matrix, w_in, w_out, **kw),
     )
+
+
+def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Upsample NHWC by an integer factor with align_corners=True semantics."""
+    _, h, w, _ = x.shape
+    return resize_bilinear_align_corners(x, (h * factor, w * factor))
+
+
+@functools.lru_cache(maxsize=None)
+def nearest_torch_indices(in_size: int, out_size: int) -> np.ndarray:
+    """Source index per output pixel of ``F.interpolate(mode='nearest')``:
+    ``floor(i · in / out)``, in float64 as the JAX package computes it."""
+    idx = (np.arange(out_size) * (in_size / out_size)).astype(np.int64)
+    return np.minimum(idx, in_size - 1)
+
+
+def resize_nearest_torch(x: torch.Tensor,
+                         size: tuple[int, int]) -> torch.Tensor:
+    """NHWC nearest resize matching torch ``interpolate(mode='nearest')``."""
+    h_out, w_out = int(size[0]), int(size[1])
+    _, h_in, w_in, _ = x.shape
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    kw = dict(dtype=torch.int64, device=x.device)
+    rows = device_constant(nearest_torch_indices, h_in, h_out, **kw)
+    cols = device_constant(nearest_torch_indices, w_in, w_out, **kw)
+    return x[:, rows][:, :, cols]
 
 
 def pil_resize(x: torch.Tensor, size: tuple[int, int],

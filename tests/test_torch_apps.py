@@ -233,6 +233,28 @@ def test_evaluate_cli_on_pth_matches_jax(workspace, tmp_path):
     _assert_metrics_close(edges, ref_edges)
 
 
+class _Built(Exception):
+    pass
+
+
+def _serving_kwargs(app, argv) -> dict:
+    """The keywords ``app.main(argv)`` passes to ``make_serving_fn``; the
+    run stops there."""
+    seen = {}
+
+    def spy(model, **kw):
+        seen.update(kw)
+        raise _Built
+
+    saved, app.make_serving_fn = app.make_serving_fn, spy
+    try:
+        with pytest.raises(_Built):
+            _quiet(app.main, argv)
+    finally:
+        app.make_serving_fn = saved
+    return seen
+
+
 def test_test_nyu_cli_matches_jax(workspace, tmp_path):
     """``apps.test_nyu`` at batch 2: the same files, 16-bit depth PNGs
     equal within 1 mm (a value within rounding of an integer mm may
@@ -268,9 +290,12 @@ def test_test_nyu_cli_matches_jax(workspace, tmp_path):
         err = np.abs(ours - ref)
         assert err.max() <= PREVIEW_ATOL and err.mean() <= PREVIEW_MEAN, (
             name, err.max(), err.mean())
-    with pytest.raises(NotImplementedError, match="A13"):
-        test_nyu.main(argv + ["-o", str(tmp_path / "x"), "--policy", "p.json",
-                              "--device", "cpu"])
+    # --policy reaches the serving fn with the batch as its hint (served
+    # end to end in test_torch_autotune.py)
+    kw = _serving_kwargs(test_nyu, argv + ["-o", str(tmp_path / "x"),
+                                           "--policy", "p.json", "--device",
+                                           "cpu"])
+    assert kw["policy_path"] == "p.json" and kw["batch_hint"] == BATCH
 
 
 def test_inference_benchmark_cli_matches_jax(workspace, tmp_path):
@@ -309,9 +334,11 @@ def test_inference_benchmark_cli_matches_jax(workspace, tmp_path):
     assert list(dp) == ["RN18-HU"] and list(dp["RN18-HU"]) == list(entry)
     with pytest.raises(NotImplementedError, match="A11b"):
         inference_benchmark.main(argv + ["--spatial", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        inference_benchmark.main(argv + ["--policy", "p.json", "--device",
-                                         "cpu"])
+    kw = _serving_kwargs(inference_benchmark, argv + [
+        "-o", str(tmp_path / "policy"), "--policy", "p.json", "--dw-impl",
+        "xla", "--device", "cpu"])
+    assert (kw["policy_path"], kw["batch_hint"], kw["dw_impl"]) == (
+        "p.json", BATCH, "xla")
 
 
 def test_summary_statistics_match_pandas():

@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from efficientdepthestimation_tpu_torch.apps.common import (
     load_any_checkpoint,
@@ -43,6 +44,13 @@ from efficientdepthestimation_tpu_torch.ops.kernels import upproj
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
     upsample_conv,
     upsample_conv_plain,
+)
+from efficientdepthestimation_tpu_torch.ops.conv import conv2d, depthwise_impl
+from efficientdepthestimation_tpu_torch.ops.norm import batch_norm
+from efficientdepthestimation_tpu_torch.ops.quant import (
+    _int_mm,
+    int_conv2d,
+    quant_conv2d,
 )
 from efficientdepthestimation_tpu_torch.training.train_step import (
     create_train_state,
@@ -1169,3 +1177,87 @@ def test_rendered_sweep_and_visual_metrics_on_card(tmp_path):
         np.float32) / 255.0)
     for fn in (ssim, psnr):
         assert abs(float(fn(a.cuda(), b.cuda())) - float(fn(a, b))) <= 1e-5
+
+
+# ---------------------------------------------------------- serving forms
+
+# The depthwise modes "xla" and "shift" against the kernel at ENB0-HU's 12
+# depthwise shapes: conv (cuDNN's grouped conv, or the per-tap f32 sum),
+# then the folded BN and swish as ops of their own. f32: f32 rounding, as
+# DW_TOL. bf16: the modes round three times (the conv's output, the BN's,
+# swish's) where the kernel rounds once; a CPU run of this comparison needs
+# rtol 2e-2 with atol 4.7e-3, held here to 2e-2 and 1e-2.
+MODE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("mode", ["xla", "shift"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c,k,stride,pad", ENB0_HU_DW_SITES)
+def test_depthwise_modes_match_kernel_at_sites(hw, c, k, stride, pad, dtype,
+                                               mode):
+    _need_card()
+    x, taps, scale, bias = _site_dw_args(dtype, hw, c, k, seed=12)
+    y, _ = depthwise_bn_swish(x, taps, scale, bias, stride=stride,
+                              padding=pad)
+    with depthwise_impl(mode):
+        acc = conv2d(x, taps.permute(2, 0, 1).unsqueeze(1), stride=stride,
+                     padding=pad, groups=c)
+    out = F.silu(batch_norm(acc, scale, bias))
+    assert out.dtype == dtype and out.shape == y.shape
+    rtol, atol = MODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), y.float(), rtol=rtol, atol=atol)
+
+
+# The int8 sites of RN50-HU, SN154-HU and DN161-HU at 228x304 (input hw,
+# cin, cout, k, stride; ops/quant.py's gate), at batch 2: ResNet-50's and
+# SENet-154's 3x3 and 1x1 convs, SENet's squeeze-excite reduce on a 1x1
+# plane, DenseNet-161's two 1x1 convs at 1920 channels, R's 5x5 convs
+# and its one-channel head.
+INT8_SITES = [
+    ((29, 38), 256, 256, 3, 2), ((15, 19), 256, 256, 3, 1),
+    ((15, 19), 512, 512, 3, 2), ((8, 10), 2048, 512, 1, 1),
+    ((8, 10), 512, 512, 3, 1), ((8, 10), 2048, 1024, 1, 1),
+    ((15, 19), 512, 512, 3, 1), ((29, 38), 256, 256, 3, 1),
+    ((114, 152), 128, 128, 5, 1), ((114, 152), 128, 1, 5, 1),
+    ((57, 76), 256, 512, 3, 2), ((29, 38), 512, 1024, 3, 2),
+    ((8, 10), 2048, 2048, 1, 1), ((15, 19), 1024, 2048, 3, 2),
+    ((1, 1), 2048, 128, 1, 1), ((14, 19), 1920, 192, 1, 1),
+    ((7, 9), 1920, 192, 1, 1),
+]
+
+
+@pytest.mark.parametrize("hw,cin,cout,k,stride", INT8_SITES)
+def test_int8_conv_on_card_matches_cpu(hw, cin, cout, k, stride):
+    """The int32 conv bit for bit the CPU's (``torch._int_mm`` a tap on
+    both), and the dequantized f32 output within f32 rounding."""
+    _need_card()
+    g = torch.Generator().manual_seed(13)
+    pad = ((k // 2, k // 2), (k // 2, k // 2))
+    xq = torch.randint(-127, 128, (2, *hw, cin), generator=g,
+                       dtype=torch.int8)
+    kq = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                       dtype=torch.int8)
+    ref = int_conv2d(xq, kq, (stride, stride), pad)
+    assert torch.equal(int_conv2d(xq.cuda(), kq.cuda(), (stride, stride),
+                                  pad).cpu(), ref)
+    x = torch.randn(2, *hw, cin, generator=g)
+    w = torch.randn(cout, cin, k, k, generator=g) / (k * cin ** 0.5)
+    bias = torch.randn(cout, generator=g)
+    ref = quant_conv2d(x, w, stride=(stride, stride), padding=pad, bias=bias)
+    out = quant_conv2d(x.cuda(), w.cuda(), stride=(stride, stride),
+                       padding=pad, bias=bias.cuda())
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-6, atol=1e-6)
+
+
+def test_int_mm_pads_rows_and_one_channel_on_card():
+    """``torch._int_mm`` on the card takes M > 16 and N a multiple of 8:
+    the R head's one output channel and a short M are padded, and the
+    block kept is the exact product."""
+    _need_card()
+    g = torch.Generator().manual_seed(14)
+    for m, n in ((5, 1), (16, 1), (17, 1), (300, 3), (40, 8)):
+        a = torch.randint(-127, 128, (m, 128), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, 128), generator=g, dtype=torch.int8)
+        out = _int_mm(a.cuda(), w.cuda()).cpu()
+        assert out.dtype == torch.int32 and out.shape == (m, n)
+        assert torch.equal(out.long(), a.long() @ w.long().t())

@@ -32,7 +32,8 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_no_jax():
     modules = _port_modules()
-    for name in ("ops.kernels.depthwise", "data.prefetch",
+    for name in ("ops.kernels.depthwise", "ops.quant", "apps.autotune",
+                 "data.prefetch",
                  "utils.run_logger", "apps.train", "utils.image_io",
                  "checkpoints.lpips_convert", "benchmark",
                  *(f"benchmark.{m}" for m in (

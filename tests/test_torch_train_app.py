@@ -178,5 +178,5 @@ def test_flags_that_raise(synthetic_nyu, tmp_path):  # noqa: F811
     with pytest.raises(SystemExit):
         train.main(_args(synthetic_nyu, "--init-from", "a.ede",
                          "--resume", "b.ede"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        train.main(_args(synthetic_nyu, "--train-policy", "policy.json"))
+    with pytest.raises(ValueError, match="accum_steps must be >= 1"):
+        train.main(_args(synthetic_nyu, "--accum-steps", "0"))
