@@ -3,8 +3,9 @@
 the route of each Hu2018 decoder site timed both ways, serving of the other
 released configurations and of DN161-HU and SN154-HU, evaluation,
 reference ``.pth`` checkpoints served and run through the apps, the
-training CLI, the user-centred benchmark, the data-parallel mesh and the
-serving forms with their policy.
+training CLI, the user-centred benchmark, the data-parallel mesh, the
+serving forms with their policy, and the kernels as registered ops,
+constant-baked serving and the ahead-of-time serving artifact.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -13,7 +14,8 @@ Run from the repository root on a machine with a CUDA card:
 Phases, one output line each (more for the per-site detail):
 
   1. build the three hand-written kernel sources with nvcc and print their
-     registers, shared memory and spills (``-Xptxas -v``), and the loss
+     registers, shared memory and spills (``-Xptxas -v``) and the torch
+     version whose ``torch.library`` registers their ops, and the loss
      kernels' f32 and MUFU operations a pixel counted in their SASS, which
      must be the counts ``LOSS_*_PER_PX`` hold; build the native host
      libraries (``native/csrc/*.cpp``: the batch decoder, the PNG, JPEG and
@@ -176,8 +178,35 @@ Phases, one output line each (more for the per-site detail):
      and ``autotune_train`` for ENB0-HU at batch 64, whose winner the
      training CLI's ``--train-policy`` must resolve to; the phase's
      seconds.
+ 15. the kernels as registered ops, constant-baked serving and the serving
+     artifact: ``torch.library.opcheck`` of the ``ede::`` ops on the card
+     at every distinct shape ENB0-HU's serving path gives the depthwise
+     and upsample-conv ops (batch 128, bf16 and f32) and at the loss
+     pair's training shape; the eight configurations served unbaked and
+     baked (``bake_weights``) in bf16 at batch 128, each with exact
+     launches, each within phase 5's bf16 tolerances of the model's own
+     f32 forward, the baked f32 forward within FOLD_REL_MAX of the
+     unbaked one, the baked bf16 output within twice phase 5's bf16
+     tolerances of the unbaked one (and within them of the JAX fixture
+     for ENB0-HU and ENB0-LR), and for both frames/s, busy ms, idle share, element-wise kernel ms and peak
+     memory; ENB0-HU exported baked at batch 128 in bf16
+     (``checkpoints.export``: export seconds, bytes), loaded and served in
+     a fresh ``python3`` that imports no model, app or checkpoint-reader
+     module (load seconds, 16 + 5 launches, frames/s beside the live
+     baked ``make_serving_fn``'s, the maximum difference from it), a
+     dynamic-batch artifact at batch 1 and 128, and an arg-weight artifact
+     rebound to a second random tree against the live fn on that tree;
+     then the ops' own dispatch cost (ENB0-HU's batch-1 f32 kernel
+     launches through the ops against their CUDA implementations called
+     as plain functions, host clock), the ENB0-HU batch-1 f32 latency,
+     batch-128 bf16 frames/s and bf16 training images/s
+     (``dispatch_ab.py``), and with
+     ``--parent-tree DIR`` the same of the tree in DIR (a ``git archive``
+     of another commit), parent, this, this, parent, each in a process of
+     its own.
 
-It prints a JSON line of the serving forms, a JSON line of the native
+It prints a JSON line of phase 15's figures, a JSON line of the serving
+forms, a JSON line of the native
 libraries' build, a JSON line of the parallelism figures, a JSON line of
 the routes' times, a JSON line of the evaluation figures, a JSON line of
 the ``.pth`` and app figures, a JSON line of the training CLI's figures, a
@@ -252,7 +281,14 @@ from efficientdepthestimation_tpu_torch.apps.point_clouds import (
     INPUT_HW as PC_INPUT_HW,
     cloud_of,
 )
-from efficientdepthestimation_tpu_torch.checkpoints.convert import to_jax_leaf
+from efficientdepthestimation_tpu_torch.checkpoints.convert import (
+    to_jax_leaf,
+    to_jax_variables,
+)
+from efficientdepthestimation_tpu_torch.checkpoints.export import (
+    load_serving_artifact,
+    save_serving_artifact,
+)
 from efficientdepthestimation_tpu_torch.checkpoints.pth_import import (
     reference_state_dict,
 )
@@ -297,7 +333,11 @@ from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
     upsample_conv_pair,
 )
-from efficientdepthestimation_tpu_torch.ops.kernels import build
+from efficientdepthestimation_tpu_torch.ops.kernels import (
+    build,
+    depthwise,
+    upproj,
+)
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
     depthwise_bn_swish_plain,
@@ -341,6 +381,8 @@ from efficientdepthestimation_tpu_torch.utils.pointcloud import (
     unproject_depth,
 )
 from efficientdepthestimation_tpu_torch.utils.profiling import peak_memory
+
+import dispatch_ab
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "e2e", "ENB0-HU-synthetic.ede")
@@ -673,7 +715,10 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("1 build", f"{name}: {line.strip()}")
     log("1 build", f"ok: the three kernel sources built for sm_90a in "
-                   f"{time.perf_counter() - t0:.1f} s")
+                   f"{time.perf_counter() - t0:.1f} s; torch "
+                   f"{torch.__version__} (CUDA {torch.version.cuda}), the "
+                   "kernels registered as torch.library.custom_op ops "
+                   "(ede::)")
     counts = loss_sass_counts()
     expected = {"fwd": (LOSS_FWD_OPS_PER_PX, LOSS_FWD_MUFU_PER_PX),
                 "bwd": (LOSS_BWD_OPS_PER_PX, LOSS_BWD_MUFU_PER_PX)}
@@ -3927,10 +3972,10 @@ def form_specs(name: str, model) -> list[tuple[str, dict]]:
 
 
 def form_error(name: str, out: torch.Tensor, ref: torch.Tensor,
-               what: str) -> tuple[float, float]:
-    """Max and mean |out - ref| within phase 5's bf16 tolerances: in
-    metres for the two trained models, relative to max|ref| for the
-    random ones."""
+               what: str, factor: float = 1.0) -> tuple[float, float]:
+    """Max and mean |out - ref| within phase 5's bf16 tolerances (times
+    ``factor``): in metres for the two trained models, relative to
+    max|ref| for the random ones."""
     err = (out - ref).abs()
     e_max, e_mean = err.max().item(), err.mean().item()
     if name == "ENB0-HU":
@@ -3941,6 +3986,7 @@ def form_error(name: str, out: torch.Tensor, ref: torch.Tensor,
         scale = ref.abs().max().item()
         e_max, e_mean = e_max / scale, e_mean / scale
         limit = BF16_RANDOM_MAX_REL, BF16_RANDOM_MEAN_REL
+    limit = (factor * limit[0], factor * limit[1])
     if not (e_max <= limit[0] and e_mean <= limit[1]):
         raise RuntimeError(f"{name} {what}: max {e_max} mean {e_mean}, "
                            f"limits {limit}")
@@ -4219,6 +4265,475 @@ def phase_forms(frames, card) -> dict:
     return out
 
 
+# Phase 15: the kernels as registered ops (torch.library.opcheck on the
+# card), constant-baked serving (bake_weights) against the unbaked forms
+# of the eight configurations, the ahead-of-time serving artifact
+# (checkpoints.export), and the cost of the ops' dispatch against another
+# tree of the port (``--parent-tree DIR``, dispatch_ab.py) when one is
+# given. The artifact is served by a fresh interpreter that imports the
+# loader alone (ARTIFACT_CHILD), which must not pull in the port's
+# models, apps or checkpoint reader.
+BAKE_CONFIGS = FORMS_CONFIGS
+# The baked f32 forward against the unbaked one, relative to max|out|: the
+# same function in another order of rounding (a CPU run of the eight
+# configurations at 64x96 agrees to 1e-5).
+FOLD_REL_MAX = 1e-4
+# Forwards' worth of ENB0-HU's batch-1 f32 kernel launches a timed loop of
+# the dispatch probe (op_dispatch_cost).
+DISPATCH_REPS = 50
+ARTIFACT_SEED = 15  # randomize_ seed of the tree an arg-weight artifact takes
+# Modules an artifact's serving process must not hold: the model code, the
+# apps, the .ede reader.
+NOT_IN_LOADER = ("efficientdepthestimation_tpu_torch.models",
+                 "efficientdepthestimation_tpu_torch.apps",
+                 "efficientdepthestimation_tpu_torch.checkpoints.serialization")
+ARTIFACT_CHILD = r'''
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from efficientdepthestimation_tpu_torch.checkpoints.export import (
+    load_serving_artifact)
+from efficientdepthestimation_tpu_torch.ops.kernels import depthwise, upproj
+import_s = time.perf_counter() - t0
+path, frames_path, out_path, warmup, iters, banned = sys.argv[1:7]
+sync = (torch.cuda.synchronize if torch.cuda.is_available()
+        else lambda: None)
+t0 = time.perf_counter()
+fn, meta = load_serving_artifact(path)
+sync()
+load_s = time.perf_counter() - t0
+frames = torch.from_numpy(np.load(frames_path)).to(meta["device"])
+depthwise.depthwise_bn_swish.launches = upproj.upsample_conv.launches = 0
+t0 = time.perf_counter()
+out = fn(frames)
+sync()
+first_s = time.perf_counter() - t0
+launches = [depthwise.depthwise_bn_swish.launches,
+            upproj.upsample_conv.launches]
+np.save(out_path, out.cpu().numpy())
+del out
+for _ in range(int(warmup)):
+    fn(frames)
+sync()
+t0 = time.perf_counter()
+for _ in range(int(iters)):
+    fn(frames)
+sync()
+dt = time.perf_counter() - t0
+held = sorted(m for m in sys.modules if m.startswith(tuple(
+    banned.split(","))))
+print(json.dumps(dict(import_s=import_s, load_s=load_s, first_call_s=first_s,
+                      launches=launches, frames_per_s=frames.shape[0]
+                      * int(iters) / dt, ms_per_batch=1e3 * dt / int(iters),
+                      banned_modules=held, meta=meta)))
+'''
+
+
+# opcheck's tests: all four at the first shape of each op and dtype, the
+# first three at the others (the fourth, AOT dispatch with dynamic shapes,
+# traces and compiles a graph, seconds a shape).
+OPCHECK_QUICK = ("test_schema", "test_autograd_registration",
+                 "test_faketensor")
+
+
+def opcheck_ops(card) -> dict:
+    """``torch.library.opcheck`` of the four kernels' ops (and the loss op
+    that carries the pair's autograd formula) on the card: the depthwise
+    and upsample-conv ops at every distinct shape ENB0-HU's serving path
+    gives them at BATCH, in bf16 and f32, the upsample-conv op with
+    gradients; the loss ops at the training shape."""
+    t0 = time.perf_counter()
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    dw_sites, up_sites, _ = main_path_sites(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    counts = dict(depthwise_bn_swish=0, upsample_conv=0)
+    seen = set()
+
+    def opcheck(op, args, first: bool) -> None:
+        torch.library.opcheck(op, args, **({} if first else dict(
+            test_utils=OPCHECK_QUICK)))
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in dw_sites:
+            key = ("dw", s["hw"], s["c"], s["k"], s["stride"], s["pad"],
+                   dtype)
+            if key in seen:
+                continue
+            seen.add(key)
+            x, taps, scale, bias = (t.detach()
+                                    for t in dw_inputs(s, dtype, gen))
+            (pt, pb), (pl, pr) = s["pad"]
+            opcheck(torch.ops.ede.depthwise_bn_swish, (
+                x, taps, scale, bias, [s["stride"]] * 2, [pt, pb, pl, pr]),
+                s is dw_sites[0])
+            counts["depthwise_bn_swish"] += 1
+        for s in up_sites:
+            key = ("up", s["hw"], s["c"], s["o"], s["size"], dtype)
+            if key in seen:
+                continue
+            seen.add(key)
+            x, k = (t.detach().requires_grad_()
+                    for t in up_inputs(s, model, dtype, gen))
+            opcheck(torch.ops.ede.upsample_conv, (x, k, list(s["size"])),
+                    s is up_sites[0])
+            counts["upsample_conv"] += 1
+    pred, target = loss_inputs(torch.bfloat16, gen)
+    mask = torch.ones(TRAIN_BATCH, device=DEVICE)
+    coef = torch.full((1,), 1.0 / pred.numel(), device=DEVICE)
+    torch.library.opcheck(torch.ops.ede.fused_depth_loss_fwd, (pred, target))
+    torch.library.opcheck(torch.ops.ede.fused_depth_loss_bwd,
+                          (pred, target, mask, coef))
+    torch.library.opcheck(torch.ops.ede.fused_depth_loss,
+                          (pred.requires_grad_(), target, mask, None))
+    counts.update(fused_depth_loss_fwd=1, fused_depth_loss_bwd=1,
+                  fused_depth_loss=1)
+    seconds = time.perf_counter() - t0
+    log("15 ops", f"{card}: torch {torch.__version__}; opcheck passed on the "
+        f"card for {counts} distinct shapes (all its tests at the first of "
+        f"each op and dtype, {', '.join(OPCHECK_QUICK)} at the rest; "
+        f"ENB0-HU's serving sites at "
+        f"batch {BATCH}, bf16 and f32; the loss at ({TRAIN_BATCH}, "
+        f"{LOSS_HW[0]}, {LOSS_HW[1]}) bf16) in {seconds:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return dict(shapes=counts, seconds=seconds, torch=torch.__version__)
+
+
+def busy_idle_elementwise(fn, calls: int = 2) -> dict:
+    """From one device-only trace of ``calls`` calls of ``fn``
+    (``_trace``): the kernels' busy ms a call, the device's idle share of
+    the host window (as ``idle_share``), device records a call, and the
+    device ms and launches a call of PyTorch's element-wise kernels
+    (those whose name holds ``elementwise``)."""
+    prof, spans, window = _trace(fn, calls, [ProfilerActivity.CUDA])
+    busy, host = union_us(spans) / calls / 1e3, 1e3 * window / calls
+    if not 0 < busy <= host:
+        raise RuntimeError(f"kernels busy {busy} ms in a {host} ms window")
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "elementwise" in e.name]
+    us = sum(e.time_range.end - e.time_range.start for e in events)
+    return dict(busy_ms=busy, idle_share=1 - busy / host, traced_ms=host,
+                records=len(spans) / calls, elementwise_ms=us / calls / 1e3,
+                elementwise_launches=len(events) / calls)
+
+
+def fixture_check(name: str, out: torch.Tensor, fixtures: dict) -> dict:
+    """The first four outputs against the configuration's JAX fixture,
+    upsampled to frame size, within phase 5's (ENB0-HU) or phase 7's
+    (ENB0-LR) bf16 limits; {} where there is none."""
+    if name not in fixtures:
+        return {}
+    e_max, e_mean = form_error(name, out[:4], fixtures[name],
+                               "baked vs the JAX fixture")
+    return dict(fixture_max_abs_m=e_max, fixture_mean_abs_m=e_mean)
+
+
+def bake_config(name: str, frames, fixtures: dict, card) -> dict:
+    """One configuration served unbaked and baked (``make_infer_fn``, bf16,
+    uint8 frames in, depth at frame size out) in this process: exact
+    launches for both; on the first F32_CHECK_FRAMES frames the baked f32
+    forward within FOLD_REL_MAX of the unbaked one (the folds are exact
+    up to rounding), each bf16 form within phase 5's bf16 tolerances of
+    the unbaked f32 forward (and the baked one of the JAX fixture, where
+    there is one); the baked bf16 output within twice those tolerances of
+    the unbaked one on all frames (two bf16 forwards, each its own
+    rounding away from the f32 one: ENB0-HU's pair reads 0.558 m against
+    the 0.5 m limit); then for each frames/s, busy ms and idle share
+    (``serving_rate``), element-wise ms and peak memory."""
+    t0 = time.perf_counter()
+    model, expected = forms_model(name)
+    n = F32_CHECK_FRAMES
+    f32 = make_infer_fn(model, preprocess=True, upsample_to=FRAME_HW,
+                        device=DEVICE)(frames[:n])
+    f32_baked = make_infer_fn(model, preprocess=True, upsample_to=FRAME_HW,
+                              device=DEVICE, bake_weights=True)(frames[:n])
+    fold_rel = max_abs(f32_baked, f32) / f32.abs().max().item()
+    if not fold_rel <= FOLD_REL_MAX:
+        raise RuntimeError(f"{name} baked vs unbaked f32 forward: max "
+                           f"{fold_rel} of max|out|, limit {FOLD_REL_MAX}")
+    del f32_baked
+    rows, outs = {}, {}
+    for label, bake in (("unbaked", False), ("baked", True)):
+        serve = make_infer_fn(model, upsample_to=FRAME_HW,
+                              dtype=torch.bfloat16, preprocess=True,
+                              device=DEVICE, bake_weights=bake)
+        y, launches = serve_counted(serve, frames, f"{name} {label}",
+                                    expected)
+        row = dict(launches=launches)
+        row["f32_max_err"], row["f32_mean_err"] = form_error(
+            name, y[:n], f32, f"{label} vs its f32 forward")
+        outs[label] = y.cpu()  # off the card: the peaks hold the model's own
+        del y
+        row.update(batch_rate(serve, frames, WARMUP, ITERS))
+        with torch.inference_mode():
+            row.update(busy_idle_elementwise(lambda: serve(frames)))
+        rows[label] = row
+        del serve
+    base, baked = rows["unbaked"], rows["baked"]
+    baked["f32_fold_rel"] = fold_rel
+    baked["max_err"], baked["mean_err"] = form_error(
+        name, outs["baked"], outs["unbaked"], "baked vs unbaked", 2.0)
+    baked.update(fixture_check(name, outs["baked"].to(DEVICE), fixtures))
+    baked["speedup"] = baked["frames_per_s"] / base["frames_per_s"]
+    log("15 bake", f"{card}: {name} bf16 batch {BATCH}, unbaked -> baked: "
+        f"{base['frames_per_s']:.1f} -> {baked['frames_per_s']:.1f} "
+        f"frames/s (x{baked['speedup']:.3f}), busy {base['busy_ms']:.2f} -> "
+        f"{baked['busy_ms']:.2f} ms, idle share {base['idle_share']:.3f} -> "
+        f"{baked['idle_share']:.3f}, element-wise "
+        f"{base['elementwise_ms']:.2f} ms ({base['elementwise_launches']:.0f}"
+        f" launches) -> {baked['elementwise_ms']:.2f} ms "
+        f"({baked['elementwise_launches']:.0f}), peak "
+        f"{base['peak_gib']:.2f} -> {baked['peak_gib']:.2f} GiB, launches "
+        f"{baked['launches']}; vs the f32 forward on {n} frames, unbaked "
+        f"max {base['f32_max_err']:.3g} mean {base['f32_mean_err']:.3g}, "
+        f"baked max {baked['f32_max_err']:.3g} mean "
+        f"{baked['f32_mean_err']:.3g}; baked vs unbaked f32 max "
+        f"{fold_rel:.3g} of max|out|; baked vs unbaked bf16 max "
+        f"{baked['max_err']:.3g} mean {baked['mean_err']:.3g}"
+        + (f", vs JAX fixture max {baked['fixture_max_abs_m']:.3g} m"
+           if "fixture_max_abs_m" in baked else "")
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    del model, outs, f32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_artifact_child(path: str, frames, tmp: str) -> tuple[dict, torch.Tensor]:
+    """``ARTIFACT_CHILD`` in a fresh ``python3`` serving ``frames`` from the
+    artifact at ``path``: its figures and its first output."""
+    frames_path = os.path.join(tmp, "frames.npy")
+    out_path = os.path.join(tmp, "artifact_out.npy")
+    np.save(frames_path, frames.cpu().numpy())
+    done = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHILD, path, frames_path, out_path,
+         str(WARMUP), str(ITERS), ",".join(NOT_IN_LOADER)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise RuntimeError(f"artifact child failed:\n{done.stderr[-4000:]}")
+    info = json.loads(done.stdout.strip().splitlines()[-1])
+    return info, torch.from_numpy(np.load(out_path)).to(DEVICE)
+
+
+def phase_artifact(frames, card) -> dict:
+    """ENB0-HU from its ``.ede`` exported baked at BATCH in bf16, served by
+    a fresh process beside the live baked ``make_serving_fn``; a
+    dynamic-batch artifact at batch 1 and BATCH; an arg-weight artifact
+    rebound to a second, seeded random tree."""
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    expected = ENB0_HU_LAUNCHES
+    kw = dict(encoder="efficientnet-b0", decoder="hu2018",
+              dtype=torch.bfloat16, device=DEVICE)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "enb0_hu_b128_bf16.edz")
+        t0 = time.perf_counter()
+        meta = save_serving_artifact(path, model, batch=BATCH, **kw)
+        out["export_s"] = time.perf_counter() - t0
+        out["artifact_bytes"] = os.path.getsize(path)
+        child, got = serve_artifact_child(path, frames, tmp)
+        if child["banned_modules"]:
+            raise RuntimeError("the artifact's process imported "
+                               f"{child['banned_modules']}")
+        if tuple(child["launches"]) != expected:
+            raise RuntimeError(f"artifact launches {child['launches']}, "
+                               f"expected {expected}")
+        live = make_serving_fn(model, batch_hint=BATCH, upsample_to=FRAME_HW,
+                               dtype=torch.bfloat16, preprocess=True,
+                               device=DEVICE)
+        if not live.spec["bake_weights"]:
+            raise RuntimeError(f"make_serving_fn at batch {BATCH} served "
+                               f"{live.spec}, not baked")
+        ref, launches = serve_counted(live, frames, "live baked", expected)
+        diff = max_abs(got, ref)
+        form_error("ENB0-HU", got, ref, "artifact vs live baked")
+        out.update(meta=meta, child=child, live_launches=launches,
+                   max_abs_vs_live=diff,
+                   live=batch_rate(live, frames, WARMUP, ITERS))
+        log("15 artifact", f"{card}: ENB0-HU baked bf16 batch {BATCH}: "
+            f"export {out['export_s']:.1f} s, {out['artifact_bytes']} bytes; "
+            f"fresh process: imports {child['import_s']:.2f} s, load "
+            f"{child['load_s']:.2f} s, first call {child['first_call_s']:.2f}"
+            f" s, launches {child['launches']}, "
+            f"{child['frames_per_s']:.1f} frames/s "
+            f"({child['ms_per_batch']:.2f} ms a batch) beside the live baked "
+            f"make_serving_fn's {out['live']['frames_per_s']:.1f} "
+            f"({out['live']['ms_per_batch']:.2f} ms); max |artifact - live| "
+            f"{diff:.3g} m; no model, app or checkpoint-reader module in "
+            "the serving process")
+        del got
+
+        path = os.path.join(tmp, "enb0_hu_dynamic_bf16.edz")
+        save_serving_artifact(path, model, batch=None, **kw)
+        fn, _ = load_serving_artifact(path)
+        dyn = {}
+        for b in (1, BATCH):
+            y, launches = serve_counted(fn, frames[:b], f"dynamic b{b}",
+                                        expected)
+            want = live(frames[:b])
+            dyn[b] = dict(launches=launches, max_abs_vs_live=max_abs(y, want))
+            form_error("ENB0-HU", y, want, f"dynamic artifact b{b}")
+        out["dynamic"] = dyn
+        log("15 artifact", f"dynamic-batch artifact against the live baked "
+            "fn on the same frames: "
+            + ", ".join(f"batch {b} launches {r['launches']} max |artifact "
+                        f"- live| {r['max_abs_vs_live']:.3g} m"
+                        for b, r in dyn.items()))
+        del fn, ref
+
+        path = os.path.join(tmp, "enb0_hu_argw_bf16.edz")
+        save_serving_artifact(path, model, batch=BATCH, bake_weights=False,
+                              **kw)
+        twin = randomize_(build_model("efficientnet-b0", "hu2018"),
+                          ARTIFACT_SEED)
+        fn, _ = load_serving_artifact(
+            path, weights=to_jax_variables(twin.state_dict()))
+        y, launches = serve_counted(fn, frames, "arg-weight artifact",
+                                    expected)
+        want = make_infer_fn(twin, upsample_to=FRAME_HW,
+                             dtype=torch.bfloat16, preprocess=True,
+                             device=DEVICE)(frames)
+        own = make_infer_fn(model, upsample_to=FRAME_HW,
+                            dtype=torch.bfloat16, preprocess=True,
+                            device=DEVICE)(frames)
+        out["arg_weights"] = dict(
+            launches=launches, max_abs_vs_live=max_abs(y, want),
+            max_abs_own_vs_twin=max_abs(own, want))
+        form_error("random ENB0-HU", y, want, "rebound artifact vs live")
+        if not out["arg_weights"]["max_abs_own_vs_twin"] > 1e-3:
+            raise RuntimeError("the artifact's own weights serve the twin's "
+                               "depth: the rebinding is not checked")
+        log("15 artifact", f"arg-weight artifact rebound to a randomize_ "
+            f"seed-{ARTIFACT_SEED} ENB0-HU tree: launches {launches}, max "
+            f"|artifact - live| {out['arg_weights']['max_abs_vs_live']:.3g}; "
+            f"the artifact's own tree, served live, differs from the twin by "
+            f"{out['arg_weights']['max_abs_own_vs_twin']:.3g}")
+        del fn, y, want, own, twin
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def op_dispatch_cost(card) -> dict:
+    """The host cost of calling the kernels through their registered ops,
+    in this tree alone: ENB0-HU's kernel sites of a batch-1 f32 forward
+    (16 depthwise, 2 upsample-conv), each launched through its public
+    wrapper, as the model calls it (the op's dispatch, then the CUDA
+    implementation), and through the CUDA implementation called as a
+    plain function (the route of the ctypes wrappers before the ops);
+    op, plain, plain, op, each loop DISPATCH_REPS forwards' worth of
+    launches under ``inference_mode``, timed on the host clock up to the
+    last launch's return (issue time) and to the synchronize after it."""
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    dw_sites, up_sites, _ = main_path_sites(model, dtype=torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    via_op, plain = [], []
+    for s in dw_sites:
+        x, taps, scale, bias = dw_inputs(s, torch.float32, gen, batch=1)
+        (pt, pb), (pl, pr) = s["pad"]
+        via_op.append(functools.partial(
+            depthwise_bn_swish, x, taps, scale, bias, s["stride"], s["pad"]))
+        plain.append(functools.partial(
+            depthwise._depthwise_cuda, x, taps, scale, bias,
+            [s["stride"]] * 2, [pt, pb, pl, pr]))
+    for s in up_sites:
+        x, k = up_inputs(s, model, torch.float32, gen, batch=1)
+        via_op.append(functools.partial(upsample_conv, x, k, s["size"]))
+        plain.append(functools.partial(upproj._upsample_conv_cuda, x, k,
+                                       list(s["size"])))
+
+    def loop(calls) -> tuple[float, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_REPS):
+            for call in calls:
+                call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (1e3 * (t1 - t0) / DISPATCH_REPS,
+                1e3 * (t2 - t0) / DISPATCH_REPS)
+
+    runs = {"op": [], "plain": []}
+    with torch.inference_mode():
+        loop(via_op), loop(plain)  # warm: shapes' launch configurations
+        for label in ("op", "plain", "plain", "op"):
+            runs[label].append(loop(via_op if label == "op" else plain))
+    issue = {k: float(np.mean([r[0] for r in v])) for k, v in runs.items()}
+    wall = {k: float(np.mean([r[1] for r in v])) for k, v in runs.items()}
+    n = len(via_op)
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=n, reps=DISPATCH_REPS, runs=runs,
+                issue_ms=issue, wall_ms=wall,
+                ms_per_forward=issue["op"] - issue["plain"],
+                us_per_call=1e3 * (issue["op"] - issue["plain"]) / n)
+
+
+def phase_dispatch(card, parent: str | None) -> dict:
+    """The ops' own dispatch cost (``op_dispatch_cost``) and the host-paced
+    paths it could slow (``dispatch_ab``): this tree in this process, and
+    with ``parent``, parent, this, this, parent, each in a process of its
+    own."""
+    cost = op_dispatch_cost(card)
+    probe = dispatch_ab.probe(ROOT)
+    cost["share_of_b1_latency"] = cost["ms_per_forward"] / probe["b1_f32_ms"]
+    log("15 dispatch", f"{card}: the ops' dispatch on ENB0-HU's "
+        f"{cost['launches']} batch-1 f32 launches: issue "
+        f"{cost['issue_ms']['op']:.3f} ms a forward through the ops, "
+        f"{cost['issue_ms']['plain']:.3f} ms calling their CUDA "
+        f"implementations (to the synchronize "
+        f"{cost['wall_ms']['op']:.3f}, {cost['wall_ms']['plain']:.3f} ms): "
+        f"{cost['us_per_call']:.1f} us a launch, "
+        f"{100 * cost['share_of_b1_latency']:.1f}% of the batch-1 f32 "
+        f"latency; ENB0-HU batch-1 f32 latency {probe['b1_f32_ms']:.2f} ms "
+        f"(median), batch-{BATCH} bf16 {probe['b128_bf16_fps']:.1f} "
+        f"frames/s, bf16 training step {probe['train_bf16_img_s']:.1f} "
+        "images/s")
+    if parent is None:
+        log("15 dispatch", "no --parent-tree given: no comparison with "
+            "another tree")
+        return dict(this=probe, op_cost=cost)
+    result = dispatch_ab.run_ab(parent)
+    for run in result["runs"]:
+        log("15 dispatch", f"{result['card']}: {run['tree']}: batch-1 f32 "
+            f"{run['b1_f32_ms']:.2f} ms, batch-{BATCH} bf16 "
+            f"{run['b128_bf16_fps']:.1f} frames/s, training "
+            f"{run['train_bf16_img_s']:.1f} images/s")
+    result.update(this=probe, op_cost=cost)
+    return result
+
+
+def phase_ops_bake_artifact(frames, card, parent: str | None) -> dict:
+    """15: the ops, baking, the artifact and the ops' dispatch cost."""
+    t0 = time.perf_counter()
+    out = {"ops": opcheck_ops(card)}
+    t1 = time.perf_counter()
+    fixtures = {}
+    for name, path in (("ENB0-HU", FIXTURE), ("ENB0-LR", LR_FIXTURE)):
+        fixtures[name] = resize_bilinear_align_corners(
+            torch.from_numpy(np.load(path)["depth"]).to(DEVICE)[..., None],
+            FRAME_HW)
+    out["bake"] = {name: bake_config(name, frames, fixtures, card)
+                   for name in BAKE_CONFIGS}
+    t2 = time.perf_counter()
+    out["artifact"] = phase_artifact(frames, card)
+    t3 = time.perf_counter()
+    out["dispatch"] = phase_dispatch(card, parent)
+    t4 = time.perf_counter()
+    out["seconds"] = t4 - t0
+    out["part_seconds"] = dict(ops=t1 - t0, bake=t2 - t1, artifact=t3 - t2,
+                               dispatch=t4 - t3)
+    out["card"] = card
+    log("15 ops/bake/artifact", f"{card}: baked/unbaked frames/s at batch "
+        f"{BATCH}: " + json.dumps({n: round(r["baked"]["speedup"], 3)
+                                   for n, r in out["bake"].items()}))
+    log("15 ops/bake/artifact", f"ok: phase 15 in {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["part_seconds"].items())
+        + ")")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4269,6 +4784,9 @@ def main() -> int:
     benchmark = phase_benchmark(card)
     parallel = phase_parallel(frames, card)
     forms = phase_forms(frames, card)
+    parent = (sys.argv[sys.argv.index("--parent-tree") + 1]
+              if "--parent-tree" in sys.argv else None)
+    ops_bake = phase_ops_bake_artifact(frames, card, parent)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -4296,6 +4814,7 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"ops_bake_artifact": ops_bake}))
     print(json.dumps({"forms": forms}))
     print(json.dumps({"native": native_info}))
     print(json.dumps({"parallel": parallel}))

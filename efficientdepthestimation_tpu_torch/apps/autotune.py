@@ -6,11 +6,11 @@ Counterpart of ``efficientdepthestimation_tpu/apps/autotune.py``.
 (``apps.common``: monolithic, staged for Hu2018 models, tiled and
 tiled-staged above ``TILE_BATCH``, each under the depthwise modes of an
 EfficientNet encoder, and with ``int8`` the dynamic-int8 variants of the
-"xla" mode) on the device it serves from and writes the fastest into a JSON
-policy keyed by (device kind, model, batch, dtype), which
-``make_serving_fn(policy_path=...)`` then serves from. The JAX package's
-``+bake`` candidates (constant-baked weights) have no counterpart until
-ROADMAP A16 lands. ``autotune_train`` does the same for the training
+"xla" mode, and the ``+bake`` variant of every candidate: constant-baked
+weights, ``apps.common.make_infer_fn``'s ``bake_weights``) on the device it
+serves from and writes the fastest into a JSON policy keyed by (device
+kind, model, batch, dtype), which ``make_serving_fn(policy_path=...)`` then
+serves from. ``autotune_train`` does the same for the training
 step's {accum_steps} × {remat} grid, which the training CLI reads through
 ``apply_train_policy``. A candidate that runs out of device memory is
 recorded as failed; any other error raises.
@@ -34,7 +34,6 @@ import torch
 from torch import nn
 
 from efficientdepthestimation_tpu_torch.apps.common import (
-    BAKE_NOT_PORTED,
     make_infer_fn,
     make_staged_infer_fn,
     make_tiled_infer_fn,
@@ -109,8 +108,14 @@ def _write_entry(path: str, key: str, entry: dict) -> None:
 
 def _serving_candidates(model: nn.Module, batch: int, int8: bool = False):
     """(name, spec) of every form × depthwise mode valid for this model, in
-    the JAX package's order, without its ``+bake`` variants; ``int8``
-    adds the int8 variant of each "xla" candidate."""
+    the JAX package's order, then the ``+bake`` variant of each; ``int8``
+    adds the int8 variant of each "xla" candidate, baked or not.
+
+    The JAX package gives ``+bake`` to its "xla" lowering alone, to bound
+    its compile time. The port compiles nothing at a candidate's build,
+    and its default lowering is "pallas" (the depthwise kernel), so every
+    lowering gets its baked variant: a superset of the JAX package's
+    names."""
     dws = ["xla"]
     if isinstance(_encoder(model), EfficientNetFeatures):
         dws += ["shift", "pallas"]
@@ -125,6 +130,8 @@ def _serving_candidates(model: nn.Module, batch: int, int8: bool = False):
             if is_hu:
                 cands.append((f"tiled-staged/{dw}",
                               dict(path="tiled-staged", dw_impl=dw)))
+    cands += [(f"{name}+bake", dict(spec, bake_weights=True))
+              for name, spec in cands]
     if int8:
         for name, spec in list(cands):
             if spec["dw_impl"] == "xla":
@@ -136,9 +143,8 @@ def build_serving_candidate(model: nn.Module, spec: dict, *,
                             upsample_to=None, dtype=None,
                             preprocess: bool = False, device=None):
     """The serving fn of ``spec``: {"path", "dw_impl", and optionally
-    "int8", "mff_merge" (staged paths), "tile_batch" (tiled paths),
-    "bake_weights" (raises: ROADMAP A16)}. The fn carries ``spec`` as
-    its attribute ``spec``."""
+    "int8", "bake_weights", "mff_merge" (staged paths), "tile_batch" (tiled
+    paths)}. The fn carries ``spec`` as its attribute ``spec``."""
     fn = _build_form(model, spec, upsample_to=upsample_to, dtype=dtype,
                      preprocess=preprocess, device=device)
     fn.spec = dict(spec)
@@ -146,12 +152,11 @@ def build_serving_candidate(model: nn.Module, spec: dict, *,
 
 
 def _build_form(model, spec, *, upsample_to, dtype, preprocess, device):
-    if spec.get("bake_weights"):
-        raise NotImplementedError(BAKE_NOT_PORTED)
     path = spec["path"]
     kw = dict(upsample_to=upsample_to, dtype=dtype, preprocess=preprocess,
               device=device, dw_impl=spec["dw_impl"],
-              int8=bool(spec.get("int8", False)))
+              int8=bool(spec.get("int8", False)),
+              bake_weights=bool(spec.get("bake_weights", False)))
     merge = {"mff_merge": spec.get("mff_merge", "module")}
     if path == "monolithic":
         return make_infer_fn(model, **kw)
@@ -243,15 +248,16 @@ def autotune_serving(model: nn.Module, batch: int, *, crop_hw=(228, 304),
         raise RuntimeError(f"every serving candidate failed: {results}")
     best = max(ok, key=lambda r: r["fps"])
     entry = {"path": best["path"], "dw_impl": best["dw_impl"],
-             "int8": bool(best.get("int8", False)), "bake_weights": False,
+             "int8": bool(best.get("int8", False)),
+             "bake_weights": bool(best.get("bake_weights", False)),
              "fps": best["fps"], "measured": results}
     if "rel_out_err" in best:
         entry["rel_out_err"] = best["rel_out_err"]
     if policy_path:
         _write_entry(policy_path, policy_key(model, batch, dtype, device),
                      entry)
-    return build({"path": best["path"], "dw_impl": best["dw_impl"],
-                  "int8": entry["int8"]}), entry
+    return build({k: entry[k] for k in ("path", "dw_impl", "int8",
+                                        "bake_weights")}), entry
 
 
 # --------------------------------------------------------------- training

@@ -7,9 +7,12 @@ dtype → f32 depth, optionally upsampled (align corners) to the frame size.
 It runs in one of three forms: monolithic (``make_infer_fn``), staged
 (``make_staged_infer_fn``: encoder → D → MFF → R, MFF's branch tails
 optionally merged) and batch-tiled (``make_tiled_infer_fn``), under a
-depthwise mode (``ops.conv.depthwise_impl``) and, on request, dynamic int8
-(``ops.quant``). ``make_serving_fn`` picks the form: from a policy the
-autotuner measured (``apps.autotune``), else by a rule fitted to the card.
+depthwise mode (``ops.conv.depthwise_impl``), on request in dynamic int8
+(``ops.quant``), and with constant-baked weights (``bake_weights``: the
+BatchNorms folded once, ``models.common.bake_``). ``make_serving_fn``
+picks the form: from a policy the autotuner measured (``apps.autotune``),
+else by a rule fitted to the card, and bakes whenever it is given a
+``batch_hint``, as the JAX package's does.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
@@ -33,6 +36,7 @@ from efficientdepthestimation_tpu_torch.checkpoints.serialization import (
 from efficientdepthestimation_tpu_torch.data.transforms import (
     eval_preprocess_image_only,
 )
+from efficientdepthestimation_tpu_torch.models.common import bake_
 from efficientdepthestimation_tpu_torch.models.hu2018 import HuDepthModel
 from efficientdepthestimation_tpu_torch.models.registry import (
     parse_checkpoint_name,
@@ -49,13 +53,8 @@ from efficientdepthestimation_tpu_torch.parallel.mesh import (
 
 __all__ = ["resolve_device", "infer_arch_from_path", "load_any_checkpoint",
            "make_infer_fn", "make_staged_infer_fn", "make_tiled_infer_fn",
-           "make_serving_fn", "serving_form", "TILE_ABOVE",
-           "BAKE_NOT_PORTED", "MFF_MERGES"]
+           "make_serving_fn", "serving_form", "TILE_ABOVE", "MFF_MERGES"]
 
-BAKE_NOT_PORTED = (
-    "bake_weights=True (the JAX package's constant-baked weights; here "
-    "BatchNorm folded into the convs and one CUDA graph a batch) is not "
-    "ported yet: ROADMAP item A16")
 MFF_MERGES = ("module", "grouped", "blockdiag")
 
 
@@ -112,11 +111,15 @@ def load_any_checkpoint(path: str, model: nn.Module | None = None, *,
     return loaded.to(device).eval()
 
 
-def _serving_copy(model: nn.Module, device, dtype) -> nn.Module:
+def _serving_copy(model: nn.Module, device, dtype,
+                  bake_weights: bool = False) -> nn.Module:
     """An eval copy of ``model`` on ``device``, every floating-point weight,
     bias and statistic cast to ``dtype`` when it is given, as in the JAX
-    package."""
+    package; with ``bake_weights`` its BatchNorms folded first, in f32
+    (``models.common.bake_``)."""
     model = copy.deepcopy(model).to(device).eval()
+    if bake_weights:
+        return bake_(model, dtype)
     return model if dtype is None else model.to(dtype)
 
 
@@ -148,7 +151,8 @@ def _finish(out: torch.Tensor, upsample_to) -> torch.Tensor:
 def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
                   preprocess: bool = False, device=None, mesh=None,
                   spatial: bool = False, local_rows: bool = False,
-                  dw_impl: str = "pallas", int8: bool = False):
+                  dw_impl: str = "pallas", int8: bool = False,
+                  bake_weights: bool = False):
     """Forward on a copy of ``model`` cast to ``dtype`` on ``device``: the
     monolithic serving form.
 
@@ -174,6 +178,15 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     default is its kernel, the JAX package's "xla". ``int8=True`` runs the
     eligible dense convs in dynamic int8 (``ops.quant``), a change of
     numerics that is never the default.
+
+    Every form serves a copy of the model made when the fn is built, so
+    later edits to ``model`` never reach it. ``bake_weights=True`` is the
+    JAX package's constant-baked form: there XLA folds the BatchNorm
+    affines into the convs of a program closed over the weights; here the
+    copy's BatchNorms are folded once, in f32 before the cast to
+    ``dtype``, into the conv weights and biases (``models.common.bake_``),
+    so that no forward recomputes or applies them. Outputs equal the
+    unbaked form's within rounding, not bit for bit.
     """
     if spatial:
         raise NotImplementedError(SPATIAL_NOT_PORTED)
@@ -181,15 +194,17 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
         device = mesh.device
     return _serve(model, {}, upsample_to=upsample_to, dtype=dtype,
                   preprocess=preprocess, device=device, mesh=mesh,
-                  local_rows=local_rows, dw_impl=dw_impl, int8=int8)
+                  local_rows=local_rows, dw_impl=dw_impl, int8=int8,
+                  bake_weights=bake_weights)
 
 
 def _serve(model, forward_kw: dict, *, upsample_to, dtype, preprocess,
-           device, dw_impl, int8, mesh=None, local_rows=False):
+           device, dw_impl, int8, bake_weights, mesh=None,
+           local_rows=False):
     """The serving fn of ``make_infer_fn``, calling the model with
     ``forward_kw``."""
     device = resolve_device(device)
-    model = _serving_copy(model, device, dtype)
+    model = _serving_copy(model, device, dtype, bake_weights)
     sharding = None if mesh is None or local_rows else data_sharding(mesh)
 
     @torch.inference_mode()
@@ -207,7 +222,7 @@ def _serve(model, forward_kw: dict, *, upsample_to, dtype, preprocess,
 def make_staged_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
                          mff_merge: str = "module", dw_impl: str = "pallas",
                          int8: bool = False, preprocess: bool = False,
-                         device=None):
+                         device=None, bake_weights: bool = False):
     """The Hu2018 forward as four stages, encoder → D → MFF → R.
 
     ``mff_merge``: "module" runs the MFF module as it is; "grouped" and
@@ -219,8 +234,8 @@ def make_staged_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     ``HuDepthModel.forward`` itself releases each intermediate at its last
     reader, so with the module merge this is the monolithic form; the JAX
     package's name is kept for its candidates and policies. Other models
-    get ``make_infer_fn``, as in the JAX package. The other arguments as in
-    ``make_infer_fn``.
+    get ``make_infer_fn``, as in the JAX package. The other arguments,
+    ``bake_weights`` among them, as in ``make_infer_fn``.
     """
     if mff_merge not in MFF_MERGES:
         raise ValueError(f"unknown mff_merge {mff_merge!r}")
@@ -228,23 +243,25 @@ def make_staged_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
                   and mff_merge != "module" else {})
     return _serve(model, forward_kw, upsample_to=upsample_to, dtype=dtype,
                   preprocess=preprocess, device=device, dw_impl=dw_impl,
-                  int8=int8)
+                  int8=int8, bake_weights=bake_weights)
 
 
 def make_tiled_infer_fn(model: nn.Module, *, tile_batch: int = 128,
                         staged: bool = True, upsample_to=None, dtype=None,
                         dw_impl: str = "pallas", int8: bool = False,
                         preprocess: bool = False, device=None,
-                        mff_merge: str = "module"):
+                        mff_merge: str = "module",
+                        bake_weights: bool = False):
     """Serve any batch as full ``tile_batch`` tiles plus one remainder
     through the staged (``staged=True``, with ``mff_merge``) or the
     monolithic form, the outputs concatenated on the device: the peak is
     one tile's working set whatever the batch. The default tile is the JAX
     package's, so that signatures and the autotuner's candidates match
     across the packages; the port's built-in rule (``serving_form``) picks
-    its own, ``TILE_ABOVE``."""
+    its own, ``TILE_ABOVE``. ``bake_weights`` as in ``make_infer_fn``."""
     kw = dict(upsample_to=upsample_to, dtype=dtype, dw_impl=dw_impl,
-              int8=int8, preprocess=preprocess, device=device)
+              int8=int8, preprocess=preprocess, device=device,
+              bake_weights=bake_weights)
     base = (make_staged_infer_fn(model, mff_merge=mff_merge, **kw) if staged
             else make_infer_fn(model, **kw))
 
@@ -305,16 +322,22 @@ def make_serving_fn(model: nn.Module, *, batch_hint: int | None = None,
     fitted to the card. Without ``batch_hint``, or with ``mesh``, it is
     ``make_infer_fn``. ``dw_impl`` and ``int8`` as in ``make_infer_fn``
     (an entry's int8 also turns it on). ``mesh``, ``spatial`` and
-    ``local_rows`` as in ``make_infer_fn``. ``bake_weights=True``, passed
-    or in the entry, raises: ROADMAP A16; ``None`` and ``False`` serve the
-    port's forms."""
-    if bake_weights:
-        raise NotImplementedError(BAKE_NOT_PORTED)
+    ``local_rows`` as in ``make_infer_fn``.
+
+    ``bake_weights`` (``make_infer_fn``'s) has the JAX package's default:
+    ``None`` bakes whenever ``batch_hint`` is given (fixed-checkpoint batch
+    serving) and not otherwise; a policy entry's own ``bake_weights``
+    decides for its form, the passed value where the entry has none. Pass
+    ``False`` to serve the unbaked form. The JAX package lets a model of
+    200 MB or more override baking into argument weights: a limit of the
+    compile transport of its TPU host, which has no counterpart on the
+    card, so no size overrides baking here."""
     if mesh is not None or batch_hint is None:
         return make_infer_fn(model, upsample_to=upsample_to, dtype=dtype,
                              preprocess=preprocess, device=device, mesh=mesh,
                              spatial=spatial, local_rows=local_rows,
-                             dw_impl=dw_impl, int8=int8)
+                             dw_impl=dw_impl, int8=int8,
+                             bake_weights=bool(bake_weights))
     from efficientdepthestimation_tpu_torch.apps.autotune import (
         build_serving_candidate,
         load_policy,
@@ -329,10 +352,11 @@ def make_serving_fn(model: nn.Module, *, batch_hint: int | None = None,
     if entry is not None:
         spec = {"path": entry["path"], "dw_impl": entry["dw_impl"],
                 "int8": bool(entry.get("int8", False)) or int8,
-                "bake_weights": bool(entry.get("bake_weights", False))}
+                "bake_weights": bool(entry.get("bake_weights",
+                                               bool(bake_weights)))}
     else:
-        spec = dict(serving_form(batch_hint), dw_impl=dw_impl,
-                    int8=int8)
+        spec = dict(serving_form(batch_hint), dw_impl=dw_impl, int8=int8,
+                    bake_weights=bake_weights is None or bool(bake_weights))
     return build_serving_candidate(model, spec, upsample_to=upsample_to,
                                    dtype=dtype, preprocess=preprocess,
                                    device=device)

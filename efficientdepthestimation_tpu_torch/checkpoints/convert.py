@@ -8,7 +8,10 @@ a depthwise ``(k, k, 1, C)`` kernel into PyTorch's ``(C, 1, k, k)``.
 tensor (a parameter, its gradient or a statistic) can be compared with the
 JAX leaf it came from; ``to_jax_variables`` inverts it for a whole
 ``state_dict`` (or any dict keyed by parameter names, such as Adam's
-moments), which is what the ``.ede`` writers store.
+moments), which is what the ``.ede`` writers store. ``pack_tree`` and
+``unpack_tree`` write and read such a tree as flax's msgpack does (each
+array an extension of type 1 holding msgpack ``(shape, dtype name, raw
+C-order bytes)``, a numpy scalar type 3).
 
 Some JAX module names hold dots: numbered submodules (``_blocks.3``,
 ``layer1.0``, ``norm.1``), DenseNet's old torchvision names
@@ -23,10 +26,15 @@ from __future__ import annotations
 
 import re
 
+import msgpack
 import numpy as np
 import torch
 
-__all__ = ["from_jax_variables", "to_jax_leaf", "to_jax_variables"]
+__all__ = ["from_jax_variables", "to_jax_leaf", "to_jax_variables",
+           "pack_tree", "unpack_tree"]
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
 
 _LEAF_NAMES = {
     ("params", "kernel"): "weight",
@@ -115,3 +123,32 @@ def to_jax_variables(state: dict) -> dict:
             node = node.setdefault(name, {})
         node[leaf] = np.array(arr, order="C")
     return tree
+
+
+def _ext_hook(code: int, data: bytes):
+    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+        raise ValueError(f"unsupported msgpack extension type {code}")
+    shape, dtype, buf = msgpack.unpackb(data, raw=False)
+    arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+    return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def _ext_pack(obj):
+    if isinstance(obj, np.generic):
+        obj = np.asarray(obj)
+    if not isinstance(obj, np.ndarray):
+        raise TypeError(f"cannot store {type(obj).__name__} in a tree")
+    payload = msgpack.packb((obj.shape, obj.dtype.name, obj.tobytes("C")),
+                            use_bin_type=True)
+    return msgpack.ExtType(_EXT_NDARRAY, payload)
+
+
+def pack_tree(tree: dict) -> bytes:
+    """A nested dict of numpy arrays as flax's ``msgpack_serialize``
+    writes it."""
+    return msgpack.packb(tree, default=_ext_pack, strict_types=True)
+
+
+def unpack_tree(payload: bytes) -> dict:
+    """The inverse of ``pack_tree`` (flax's ``msgpack_restore``)."""
+    return msgpack.unpackb(payload, ext_hook=_ext_hook, raw=False)

@@ -27,7 +27,6 @@ import json
 import os
 import warnings
 
-import msgpack
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -36,7 +35,9 @@ from torch import nn
 from efficientdepthestimation_tpu_torch import MIDAS_CHECKPOINT_VERSION
 from efficientdepthestimation_tpu_torch.checkpoints.convert import (
     from_jax_variables,
+    pack_tree,
     to_jax_variables,
+    unpack_tree,
 )
 from efficientdepthestimation_tpu_torch.models.midas import (
     Discriminator,
@@ -54,28 +55,6 @@ __all__ = ["read_ede", "write_ede", "load_checkpoint", "save_checkpoint",
            "load_discriminator", "MAGIC"]
 
 MAGIC = b"EDE1"
-_EXT_NDARRAY = 1
-_EXT_NPSCALAR = 3
-
-
-def _ext_hook(code: int, data: bytes):
-    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
-        raise ValueError(f".ede: unsupported msgpack extension type {code}")
-    shape, dtype, buf = msgpack.unpackb(data, raw=False)
-    arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
-    return arr[()] if code == _EXT_NPSCALAR else arr
-
-
-def _ext_pack(obj):
-    if isinstance(obj, np.generic):
-        obj = np.asarray(obj)
-    if not isinstance(obj, np.ndarray):
-        raise TypeError(f".ede: cannot store {type(obj).__name__}")
-    payload = msgpack.packb((obj.shape, obj.dtype.name, obj.tobytes("C")),
-                            use_bin_type=True)
-    return msgpack.ExtType(_EXT_NDARRAY, payload)
-
-
 def read_ede(path: str) -> tuple[dict, dict]:
     """(header, variable tree of numpy arrays) of an ``.ede`` file."""
     with open(path, "rb") as f:
@@ -84,7 +63,7 @@ def read_ede(path: str) -> tuple[dict, dict]:
             raise ValueError(f"Not an EDE checkpoint (magic {magic!r})")
         n = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n).decode())
-        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+        tree = unpack_tree(f.read())
     return header, tree
 
 
@@ -92,7 +71,7 @@ def write_ede(path: str, header: dict, tree: dict) -> None:
     """Write ``header`` and a nested dict of numpy arrays as an ``.ede``
     file (the JAX package's ``_write``). The file appears whole or not at
     all: it is written beside its name and renamed over it."""
-    payload = msgpack.packb(tree, default=_ext_pack, strict_types=True)
+    payload = pack_tree(tree)
     header_bytes = json.dumps(header).encode()
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:

@@ -20,8 +20,8 @@ from efficientdepthestimation_tpu_torch.parallel.mesh import (
     differentiable_all_reduce,
 )
 
-__all__ = ["Conv", "BatchNorm", "frozen_statistics", "randomize_",
-           "BatchShare", "batch_share", "per_sample_uniform"]
+__all__ = ["Conv", "BatchNorm", "FoldedNorm", "bake_", "frozen_statistics",
+           "randomize_", "BatchShare", "batch_share", "per_sample_uniform"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +155,91 @@ class BatchNorm(nn.Module):
                                        + m * unbiased)
         inv = torch.rsqrt(var + self.eps) * self.weight
         return (xf * inv + (self.bias - mean * inv)).to(x.dtype)
+
+
+class FoldedNorm(nn.Module):
+    """An eval ``BatchNorm`` whose fold was computed once: f32 ``scale`` and
+    ``shift`` buffers, applied as ``ops.norm.batch_norm`` applies them. A
+    baked model (``bake_``) holds one where a BatchNorm does not follow a
+    conv, and the depthwise kernel takes its buffers as they are."""
+
+    def __init__(self, scale: torch.Tensor, shift: torch.Tensor):
+        super().__init__()
+        self.register_buffer("scale", scale)
+        self.register_buffer("shift", shift)
+
+    def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.scale, self.shift
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return batch_norm(x, self.scale, self.shift)
+
+
+def _submodule(root: nn.Module, name: str) -> nn.Module | None:
+    try:
+        return root.get_submodule(name)
+    except AttributeError:
+        return None
+
+
+def _set_submodule(root: nn.Module, name: str, module: nn.Module) -> None:
+    parent, _, leaf = name.rpartition(".")
+    root.get_submodule(parent)._modules[leaf] = module
+
+
+@torch.no_grad()
+def bake_(model: nn.Module, dtype: torch.dtype | None = None) -> nn.Module:
+    """Fold the eval BatchNorms of ``model`` into constants, in place: the
+    port's form of the JAX package's constant-baked weights, where XLA folds
+    the BatchNorm affines into the convs.
+
+    A module lists the (conv, BatchNorm) pairs it runs back to back, the
+    BatchNorm reading the conv's output alone, in ``CONV_BN`` (names below
+    it). Each pair's BatchNorm is folded once, in f32, into a copy of the
+    conv's weight and a bias (``weight·scale``, ``bias·scale + shift``),
+    and replaced by ``nn.Identity``. Every other BatchNorm (one that reads a
+    sum, a concatenation or a pool, or the depthwise kernel's, which takes
+    its scale and shift as inputs) becomes a ``FoldedNorm`` of its fold.
+    Modules with a ``bake`` method then precompute what their eval forward
+    would rebuild at every call (the depthwise taps, the stacked
+    UpProjection kernels). Last, every floating-point tensor but the
+    ``FoldedNorm`` buffers, which stay f32, is cast to ``dtype`` when it is
+    given. The model is put in eval mode; its outputs equal the unbaked
+    model's within rounding, not bit for bit.
+    """
+    model.eval()
+    for module in list(model.modules()):
+        for conv_name, bn_name in getattr(module, "CONV_BN", ()):
+            conv, bn = _submodule(module, conv_name), _submodule(module,
+                                                                 bn_name)
+            if conv is None or bn is None:  # e.g. no downsample here
+                continue
+            scale, shift = bn.folded()
+            bias = shift if conv.bias is None else (
+                conv.bias.float() * scale + shift)
+            conv.weight = nn.Parameter(
+                conv.weight.float() * scale[:, None, None, None],
+                requires_grad=False)
+            conv.bias = nn.Parameter(bias, requires_grad=False)
+            _set_submodule(module, bn_name, nn.Identity())
+    for name, module in list(model.named_modules()):
+        if isinstance(module, BatchNorm):
+            _set_submodule(model, name, FoldedNorm(
+                *(t.detach().clone() for t in module.folded())))
+    for module in model.modules():
+        if dtype is None or isinstance(module, FoldedNorm):
+            continue
+        for group in (module._parameters, module._buffers):
+            for key, t in group.items():
+                if t is not None and t.is_floating_point():
+                    if isinstance(t, nn.Parameter):
+                        t.data = t.data.to(dtype)
+                    else:
+                        group[key] = t.to(dtype)
+    for module in model.modules():
+        if hasattr(module, "bake"):
+            module.bake()
+    return model
 
 
 @contextlib.contextmanager

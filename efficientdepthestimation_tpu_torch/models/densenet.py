@@ -74,7 +74,12 @@ def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
 
 class DenseNetFeatures(nn.Module):
     """7×7/2 stem, 3×3/2 max pool (padding 1), four dense blocks with
-    transitions between them, returning the four taps (NHWC)."""
+    transitions between them, returning the four taps (NHWC). The stem's
+    BatchNorm is the one that follows a conv: the dense layers' and
+    transitions' read a concatenation or a pool, and stay BatchNorms of
+    their own when baked."""
+
+    CONV_BN = (("features.conv0", "features.norm0"),)
 
     def __init__(self, variant: str = "densenet161"):
         super().__init__()

@@ -116,7 +116,12 @@ def efficientnet_stage_splits(variant: str) -> list[int]:
 
 class MBConvBlock(nn.Module):
     """Expand 1×1 → depthwise/BN/swish → squeeze-excite → project 1×1, and
-    the residual (with drop-connect in training) where stride 1 keeps C."""
+    the residual (with drop-connect in training) where stride 1 keeps C.
+    Baked (``models.common.bake_``), the expand and project convs carry
+    their BatchNorms, and the depthwise kernel's taps and ``_bn1``'s fold
+    are computed once."""
+
+    CONV_BN = (("_expand_conv", "_bn0"), ("_project_conv", "_bn2"))
 
     def __init__(self, kernel: int, stride: int, expand: int, cin: int,
                  cout: int, se: float, image_size: tuple[int, int]):
@@ -140,6 +145,15 @@ class MBConvBlock(nn.Module):
             self._se_expand = Conv(n_sq, mid, 1, bias=True)
         self._project_conv = Conv(mid, cout, 1)
         self._bn2 = BatchNorm(cout, **bn)
+        self.register_buffer("baked_taps", None)
+
+    def _taps(self, dtype: torch.dtype) -> torch.Tensor:
+        """The depthwise weight as the kernel's (k, k, C) taps."""
+        taps = self._depthwise_conv.weight[:, 0].permute(1, 2, 0)
+        return taps.to(dtype).contiguous()
+
+    def bake(self) -> None:
+        self.baked_taps = self._taps(self._depthwise_conv.weight.dtype)
 
     def forward(self, x: torch.Tensor,
                 drop_mask: torch.Tensor | None = None,
@@ -151,12 +165,11 @@ class MBConvBlock(nn.Module):
         inputs = x
         if self.expand != 1:
             x = F.silu(self._bn0(self._expand_conv(x)))
-        # (C, 1, k, k) -> (k, k, C)
-        taps = self._depthwise_conv.weight[:, 0].permute(1, 2, 0)
+        taps = (self.baked_taps if self.baked_taps is not None
+                else self._taps(x.dtype))
         scale, shift = self._bn1.folded()
-        x, sums = depthwise_bn_swish(x, taps.to(x.dtype).contiguous(), scale,
-                                     shift, stride=self.stride,
-                                     padding=self.pad)
+        x, sums = depthwise_bn_swish(x, taps, scale, shift,
+                                     stride=self.stride, padding=self.pad)
         if self.has_se:
             mean = (sums / (x.shape[1] * x.shape[2])).to(x.dtype)
             sq = F.silu(self._se_reduce(mean[:, None, None, :]))
@@ -196,6 +209,8 @@ class EfficientNetFeatures(nn.Module):
     ``models.common.batch_share`` the masks are the global batch's, at this
     rank's rows.
     """
+
+    CONV_BN = (("_conv_stem", "_bn0"),)
 
     def __init__(self, variant: str = "efficientnet-b0",
                  drop_connect_rate: float = 0.2):

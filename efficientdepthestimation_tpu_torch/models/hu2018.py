@@ -4,7 +4,7 @@ Counterpart of ``efficientdepthestimation_tpu/models/hu2018.py``
 (reference ReSIDE/models/modules.py:16-298, net.py:17-39). Each
 UpProjection computes both 5×5 branches of ``conv(upsample(x))`` in one
 pass over branch-stacked kernels: through the exact einsum rewrite
-(``ops.fused.upsample_conv_pair``) where ``should_fuse`` picks it, else
+(``ops.fused.upsample_conv_stacked``) where ``should_fuse`` picks it, else
 through the hand-written ``upsample_conv`` kernel, whose gradient is the
 VJP of the plain composition. ``module.train()`` selects batch statistics in
 every BatchNorm, as ``train=True`` does in the JAX package.
@@ -31,7 +31,7 @@ from efficientdepthestimation_tpu_torch.ops import quant
 from efficientdepthestimation_tpu_torch.ops.conv import conv2d
 from efficientdepthestimation_tpu_torch.ops.fused import (
     should_fuse,
-    upsample_conv_pair,
+    upsample_conv_stacked,
 )
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import upsample_conv
 from efficientdepthestimation_tpu_torch.ops.norm import batch_norm
@@ -49,7 +49,12 @@ def _hwio(weight: torch.Tensor) -> torch.Tensor:
 
 class UpProjection(nn.Module):
     """Upsample, then two branches (5×5→BN→ReLU→3×3→BN and 5×5→BN), summed,
-    ReLU. ``conv1``/``conv2`` hold only the 5×5 weights of the branches."""
+    ReLU. ``conv1``/``conv2`` hold only the 5×5 weights of the branches.
+    Baked (``models.common.bake_``), the three convs carry their
+    BatchNorms, and the stacked kernels and biases of the heads are
+    computed once."""
+
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"), ("conv1_2", "bn1_2"))
 
     def __init__(self, cin: int, features: int):
         super().__init__()
@@ -60,23 +65,38 @@ class UpProjection(nn.Module):
         self.conv1_2 = Conv(features, features, 3, padding=1)
         self.bn1_2 = BatchNorm(features)
         self.bn2 = BatchNorm(features)
+        self.register_buffer("baked_kernels", None)
+        self.register_buffer("baked_bias", None)
+
+    def _stacked(self, dtype: torch.dtype) -> torch.Tensor:
+        """Both branches' 5×5 kernels stacked on O: HWIO (5, 5, cin, 2f)."""
+        k1 = _hwio(self.conv1.weight).to(dtype)
+        k2 = _hwio(self.conv2.weight).to(dtype)
+        return torch.cat([k1, k2], dim=-1).contiguous()
+
+    def bake(self) -> None:
+        self.baked_kernels = self._stacked(self.conv1.weight.dtype)
+        self.baked_bias = torch.cat([self.conv1.bias, self.conv2.bias])
 
     def heads(self, x: torch.Tensor, size: tuple[int, int]
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Both branches' 5×5 convs of ``upsample(x, size)``, before their
-        BatchNorms, by the site's route."""
+        """Both branches' 5×5 convs of ``upsample(x, size)``, by the site's
+        route: before their BatchNorms, or baked, with them."""
         f, cin = self.features, x.shape[-1]
-        k1 = _hwio(self.conv1.weight).to(x.dtype)
-        k2 = _hwio(self.conv2.weight).to(x.dtype)
+        k = (self.baked_kernels if self.baked_kernels is not None
+             else self._stacked(x.dtype))
+        bias = self.baked_bias
         if should_fuse(tuple(x.shape[1:3]), tuple(size), cin, f, x.dtype):
-            return upsample_conv_pair(x, k1, k2, size)
-        if quant.should_quantize((5, 5, cin, 2 * f), 1, (1, 1)):
-            w = torch.cat([self.conv1.weight, self.conv2.weight])
+            b = upsample_conv_stacked(x, k, size)
+        elif quant.should_quantize((5, 5, cin, 2 * f), 1, (1, 1)):
             b = quant.quant_conv2d(resize_bilinear_align_corners(x, size),
-                                   w.to(x.dtype), padding=((2, 2), (2, 2)))
+                                   k.permute(3, 2, 0, 1).contiguous(),
+                                   padding=((2, 2), (2, 2)), bias=bias)
+            bias = None
         else:
-            b = upsample_conv(x, torch.cat([k1, k2], dim=-1).contiguous(),
-                              size)
+            b = upsample_conv(x, k, size)
+        if bias is not None:
+            b = b + bias
         return b[..., :f], b[..., f:]
 
     def forward(self, x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -87,6 +107,8 @@ class UpProjection(nn.Module):
 
 class DecoderD(nn.Module):
     """1×1 channel-halving conv, then 4 chained UpProjections."""
+
+    CONV_BN = (("conv", "bn"),)
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -110,6 +132,8 @@ class DecoderD(nn.Module):
 class MFF(nn.Module):
     """Each tap through an UpProjection to 16 channels at the decoder size,
     concatenated, then 5×5 conv + BN + ReLU."""
+
+    CONV_BN = (("conv", "bn"),)
 
     def __init__(self, block_channel: Sequence[int], num_features: int = 64):
         super().__init__()
@@ -143,21 +167,26 @@ def mff_apply_merged(mff: MFF, taps: Sequence[torch.Tensor],
     heads = [up.heads(tap, size) for up, tap in zip(ups, taps)]
 
     def cat_bn(x, name):
-        folds = [getattr(up, name).folded() for up in ups]
+        norms = [getattr(up, name) for up in ups]
+        if all(isinstance(n, nn.Identity) for n in norms):
+            return x  # baked: folded into the convs
+        folds = [n.folded() for n in norms]
         return batch_norm(x, torch.cat([s for s, _ in folds]),
                           torch.cat([b for _, b in folds]))
 
     x1 = F.relu(cat_bn(torch.cat([h[0] for h in heads], dim=-1), "bn1"))
     ws = [up.conv1_2.weight for up in ups]  # each (co, co, 3, 3)
+    bias = (None if ups[0].conv1_2.bias is None
+            else torch.cat([up.conv1_2.bias for up in ups]).to(x1.dtype))
     co = ws[0].shape[0]
     if block_diag:
         w = ws[0].new_zeros(len(ws) * co, len(ws) * co, 3, 3)
         for i, wi in enumerate(ws):
             w[i * co:(i + 1) * co, i * co:(i + 1) * co] = wi
-        x1 = conv2d(x1, w.to(x1.dtype), padding=1)
+        x1 = conv2d(x1, w.to(x1.dtype), padding=1, bias=bias)
     else:
         x1 = conv2d(x1, torch.cat(ws).to(x1.dtype), padding=1,
-                    groups=len(ws))
+                    groups=len(ws), bias=bias)
     x1 = cat_bn(x1, "bn1_2")
     x2 = cat_bn(torch.cat([h[1] for h in heads], dim=-1), "bn2")
     x = F.relu(x1 + x2)
@@ -166,6 +195,8 @@ def mff_apply_merged(mff: MFF, taps: Sequence[torch.Tensor],
 
 class RefineR(nn.Module):
     """Two 5×5 conv+BN+ReLU, then a 5×5 conv to one depth channel."""
+
+    CONV_BN = (("conv0", "bn0"), ("conv1", "bn1"))
 
     def __init__(self, block_channel4: int):
         super().__init__()

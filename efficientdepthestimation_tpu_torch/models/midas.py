@@ -48,6 +48,9 @@ class ResidualBlock(nn.Module):
     """ReLU → 3×3 conv (stride) → BN → ReLU → 3×3 conv → BN, plus the input
     or, with ``project``, its 1×1 projection."""
 
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"),
+               ("down_sample.0", "down_sample.1"))
+
     def __init__(self, cin: int, features: int, stride: int = 1,
                  project: bool = False):
         super().__init__()
@@ -68,6 +71,9 @@ class ResidualBlock(nn.Module):
 class BottleneckBlock(nn.Module):
     """Pre-activation 1×1 → 3×3 → 1×1 at ``features // 4`` channels inside,
     plus the input or its 1×1 projection."""
+
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"),
+               ("down_sample.0", "down_sample.1"))
 
     def __init__(self, cin: int, features: int, project: bool = False):
         super().__init__()
@@ -115,6 +121,8 @@ class DecoderBlock(nn.Module):
 
 class MidasDecoder(nn.Module):
     """``num_features="auto"`` means the first tap's channels."""
+
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"))
 
     def __init__(self, encoder_block_channels: Sequence[int],
                  num_features: int | str = "auto",
@@ -186,6 +194,8 @@ class Discriminator(nn.Module):
     """The reference's patch-style GAN critic (lasinger2019.py:426-491):
     NHWC (N, h, w, in_channels) to (N, 1, 1, 1). ``adversarial_training``
     is metadata the checkpoint carries; it changes no computation."""
+
+    CONV_BN = (("net.0", "net.1"),)
 
     def __init__(self, in_channels: int = 4,
                  adversarial_training: bool = False):

@@ -39,8 +39,12 @@ def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
     return nn.Sequential(Conv(cin, cout, 1, stride), BatchNorm(cout))
 
 
+_DOWNSAMPLE = ("downsample.0", "downsample.1")
+
+
 class BasicBlock(nn.Module):
     expansion = 1
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"), _DOWNSAMPLE)
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False):
@@ -61,6 +65,8 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     expansion = 4
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"),
+               _DOWNSAMPLE)
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False):
@@ -84,6 +90,8 @@ class Bottleneck(nn.Module):
 
 class ResNetFeatures(nn.Module):
     """Stem + layer1..4, returning the four stage outputs (NHWC)."""
+
+    CONV_BN = (("conv1", "bn1"),)
 
     def __init__(self, variant: str = "resnet50"):
         super().__init__()

@@ -72,6 +72,9 @@ class SEBottleneck(nn.Module):
       (stride) to the same.
     """
 
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"),
+               ("downsample.0", "downsample.1"))
+
     def __init__(self, inplanes: int, planes: int, style: str = "senet",
                  groups: int = 64, reduction: int = 16, base_width: int = 4,
                  stride: int = 1, has_downsample: bool = False,
@@ -133,6 +136,8 @@ class SENetFeatures(nn.Module):
             stem = {"conv1": Conv(3, inplanes, 7, 2, 3),
                     "bn1": BatchNorm(inplanes)}
         self.layer0 = nn.ModuleDict(stem)
+        self.CONV_BN = tuple((f"layer0.conv{i}", f"layer0.bn{i}")
+                             for i in range(1, len(stem) // 2 + 1))
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
                                                      cfg["layers"])):
             stride = 1 if stage == 0 else 2

@@ -27,7 +27,7 @@ from efficientdepthestimation_tpu_torch.ops.resize import (
     device_constant,
 )
 
-__all__ = ["should_fuse", "upsample_conv_pair"]
+__all__ = ["should_fuse", "upsample_conv_pair", "upsample_conv_stacked"]
 
 # The route at each Hu2018 decoder site, fitted to the faster of the two
 # at the 40 decoder sites of ENB0-HU, ENB4-HU, RN50-HU, DN161-HU and
@@ -69,8 +69,8 @@ def _shifted_matrices(in_size: int, out_size: int, taps: int = 5) -> np.ndarray:
     return shifted
 
 
-def _upsample_conv_multi(x: torch.Tensor, kernels: torch.Tensor,
-                         size: tuple[int, int]) -> torch.Tensor:
+def upsample_conv_stacked(x: torch.Tensor, kernels: torch.Tensor,
+                          size: tuple[int, int]) -> torch.Tensor:
     """``conv2d(resize_bilinear_align_corners(x, size), kernels, pad=taps//2)``
     for NHWC ``x`` and HWIO ``kernels`` (taps, taps, ci, co); (n, H, W, co)."""
     taps = kernels.shape[0]
@@ -90,5 +90,5 @@ def upsample_conv_pair(x: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
     """Both UpProjection branches (HWIO ``k1``, ``k2``) in one pass over the
     stacked kernels."""
     co = k1.shape[-1]
-    y = _upsample_conv_multi(x, torch.cat([k1, k2], dim=-1), size)
+    y = upsample_conv_stacked(x, torch.cat([k1, k2], dim=-1), size)
     return y[..., :co], y[..., co:]

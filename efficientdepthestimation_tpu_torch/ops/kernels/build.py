@@ -18,7 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "load", "check", "CSRC_DIR", "BUILD_DIR"]
+__all__ = ["build", "load", "check", "check_device", "CSRC_DIR",
+           "BUILD_DIR"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -96,3 +97,10 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.ede_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def check_device(name: str, device) -> None:
+    """Each kernel's op has a CUDA and a CPU implementation; an eager call
+    on any other device (the fake implementation aside) is refused."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")

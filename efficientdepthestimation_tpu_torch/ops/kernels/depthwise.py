@@ -1,11 +1,15 @@
 """Fused depthwise conv + folded BN + swish (+ SE spatial sums).
 
 Counterpart of ``efficientdepthestimation_tpu/ops/pallas/depthwise.py``.
-``depthwise_bn_swish`` launches the hand-written CUDA kernel in
-``csrc/depthwise_bn_swish.cu`` on CUDA tensors and runs the plain PyTorch
-version ``depthwise_bn_swish_plain`` on CPU tensors; it never falls back
-from one to the other. The kernel's source picks its block shape from the
-call's shape alone (``launch_config`` asks it once a shape).
+``depthwise_bn_swish`` calls the registered op ``ede::depthwise_bn_swish``,
+whose CUDA implementation launches the hand-written kernel in
+``csrc/depthwise_bn_swish.cu`` and whose CPU implementation is the plain
+PyTorch version ``depthwise_bn_swish_plain``: PyTorch's dispatcher picks
+one by the tensors' device, and neither falls back to the other. Its fake
+implementation gives the output shapes, so ``torch.export`` and
+``torch.compile`` trace the op as itself. The kernel's source picks its
+block shape from the call's shape alone (``launch_config`` asks it once a
+shape).
 """
 
 from __future__ import annotations
@@ -99,26 +103,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def depthwise_bn_swish(x: torch.Tensor, taps: torch.Tensor,
-                       scale: torch.Tensor, bias: torch.Tensor,
-                       stride=(1, 1), padding=((0, 0), (0, 0))
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``swish(depthwise_conv(x) * scale + bias)`` and its spatial sums.
+def _out_hw(h: int, w: int, k: int, stride, pads) -> tuple[int, int]:
+    pt, pb, pl, pr = pads
+    return (h + pt + pb - k) // stride[0] + 1, (w + pl + pr - k) // stride[1] + 1
 
-    x: (B, H, W, C) bf16 or f32; taps: (k, k, C) in x's dtype, k = 3 or 5;
-    scale/bias: (C,) f32, a folded eval BatchNorm (``ops.norm.fold_bn``);
-    padding ((top, bottom), (left, right)) of zeros. Returns
-    ``(y, sums)``: y (B, oh, ow, C) in x's dtype and sums (B, C) f32 taken
-    before the cast, so the squeeze-excite mean is ``sums / (oh * ow)``.
-    On the card the sums are the same, bit for bit, from launch to launch.
-    """
+
+def _depthwise_cuda(x: torch.Tensor, taps: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor,
+                    stride: list[int], padding: list[int]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: one launch of the kernel.
+    ``padding`` is (top, bottom, left, right). A plain function, so that
+    the op's dispatch cost can be timed against a call of it."""
     dev = x.device
-    if dev.type == "cpu":
-        return depthwise_bn_swish_plain(x, taps, scale, bias, stride, padding)
-    if dev.type != "cuda":
-        raise ValueError(f"depthwise_bn_swish: unsupported device {dev}")
-    (pt, pb), (pl, pr) = norm_padding(padding)
-    sh, sw = _pair(stride)
+    pt, pb, pl, pr = padding
+    sh, sw = stride
     if x.dtype not in _DTYPES:
         raise TypeError(f"depthwise_bn_swish: x must be f32 or bf16, "
                         f"got {x.dtype}")
@@ -146,8 +145,7 @@ def depthwise_bn_swish(x: torch.Tensor, taps: torch.Tensor,
     for t in (x, taps, scale, bias):
         if not t.is_contiguous():
             raise ValueError("depthwise_bn_swish: tensors must be contiguous")
-    oh = (h + pt + pb - k) // sh + 1
-    ow = (w + pl + pr - k) // sw + 1
+    oh, ow = _out_hw(h, w, k, stride, padding)
     if min(b, c, oh, ow) <= 0:
         raise ValueError(f"depthwise_bn_swish: empty output for x "
                          f"{tuple(x.shape)}")
@@ -170,6 +168,46 @@ def depthwise_bn_swish(x: torch.Tensor, taps: torch.Tensor,
     build.check(lib, err, "depthwise_bn_swish")
     depthwise_bn_swish.launches += 1
     return y, sums
+
+
+_depthwise_op = torch.library.custom_op(
+    "ede::depthwise_bn_swish", _depthwise_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@_depthwise_op.register_kernel("cpu")
+def _depthwise_cpu(x, taps, scale, bias, stride, padding):
+    pt, pb, pl, pr = padding
+    return depthwise_bn_swish_plain(x, taps, scale, bias, tuple(stride),
+                                    ((pt, pb), (pl, pr)))
+
+
+@_depthwise_op.register_fake
+def _depthwise_fake(x, taps, scale, bias, stride, padding):
+    b, h, w, c = x.shape
+    oh, ow = _out_hw(h, w, taps.shape[0], stride, padding)
+    return (x.new_empty((b, oh, ow, c)),
+            x.new_empty((b, c), dtype=torch.float32))
+
+
+def depthwise_bn_swish(x: torch.Tensor, taps: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor,
+                       stride=(1, 1), padding=((0, 0), (0, 0))
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``swish(depthwise_conv(x) * scale + bias)`` and its spatial sums.
+
+    x: (B, H, W, C) bf16 or f32; taps: (k, k, C) in x's dtype, k = 3 or 5;
+    scale/bias: (C,) f32, a folded eval BatchNorm (``ops.norm.fold_bn``);
+    padding ((top, bottom), (left, right)) of zeros. Returns
+    ``(y, sums)``: y (B, oh, ow, C) in x's dtype and sums (B, C) f32 taken
+    before the cast, so the squeeze-excite mean is ``sums / (oh * ow)``.
+    On the card the sums are the same, bit for bit, from launch to launch.
+    ``launches`` counts the kernel's launches (CPU calls do not count).
+    """
+    build.check_device("depthwise_bn_swish", x.device)
+    (pt, pb), (pl, pr) = norm_padding(padding)
+    return _depthwise_op(x, taps, scale, bias, list(_pair(stride)),
+                         [pt, pb, pl, pr])
 
 
 depthwise_bn_swish.launches = 0

@@ -1,15 +1,22 @@
 """Fused Sobel + 4-term depth loss with its gradient, as a kernel pair.
 
 Counterpart of ``efficientdepthestimation_tpu/ops/pallas/fused_loss.py``.
-``fused_depth_loss`` is a ``torch.autograd.Function``: its forward reduces
-the four loss terms to per-image sums (``fused_depth_loss_fwd``) and takes
-the masked mean in PyTorch; its backward writes dL/dpred in one pass
-(``fused_depth_loss_bwd``). On CUDA tensors both launch the hand-written
-kernels of ``csrc/fused_depth_loss.cu``, one device operation a call with
-no scratch memory; the kernels' source picks the launch shape
-(``launch_config`` asks it once a shape). On CPU tensors they run the
+The pair is two registered ops, ``ede::fused_depth_loss_fwd`` (the four
+loss terms reduced to per-image sums) and ``ede::fused_depth_loss_bwd``
+(dL/dpred in one pass). Their CUDA implementations launch the
+hand-written kernels of ``csrc/fused_depth_loss.cu``, one device operation
+a call with no scratch memory (the kernels' source picks the launch shape;
+``launch_config`` asks it once a shape); their CPU implementations are the
 plain PyTorch versions ``fused_depth_loss_fwd_plain`` and
-``fused_depth_loss_bwd_plain``. Neither ever falls back to the other.
+``fused_depth_loss_bwd_plain``. PyTorch's dispatcher picks one by the
+tensors' device, and neither falls back to the other.
+
+``fused_depth_loss`` calls a third op, ``ede::fused_depth_loss``: the
+forward op, then the masked mean in PyTorch, with an autograd formula
+(``register_autograd``) that launches the backward op. The loss, not the
+sums, carries the formula: the backward kernel computes the gradient of
+the four terms weighted alike, which is the loss's gradient but not that of
+an arbitrary function of the sums.
 """
 
 from __future__ import annotations
@@ -155,17 +162,10 @@ def _check_pair(name: str, pred: torch.Tensor, target: torch.Tensor) -> None:
         raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def fused_depth_loss_fwd(pred: torch.Tensor,
-                         target: torch.Tensor) -> torch.Tensor:
-    """Per-image loss sums (N, 4) f32: (log-L1 depth, dx, dy, normal).
-
-    pred (N, H, W) f32 or bf16, target (N, H, W) f32.
-    """
-    if pred.device.type == "cpu":
-        return fused_depth_loss_fwd_plain(pred, target)
-    if pred.device.type != "cuda":
-        raise ValueError(f"fused_depth_loss_fwd: unsupported device "
-                         f"{pred.device}")
+@torch.library.custom_op("ede::fused_depth_loss_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The forward op's CUDA implementation: one launch of the kernel."""
     _check_pair("fused_depth_loss_fwd", pred, target)
     n, h, w = pred.shape
     vec = vector_path(pred, target)
@@ -182,19 +182,21 @@ def fused_depth_loss_fwd(pred: torch.Tensor,
     return sums
 
 
-def fused_depth_loss_bwd(pred: torch.Tensor, target: torch.Tensor,
-                         mask: torch.Tensor,
-                         coef: torch.Tensor) -> torch.Tensor:
-    """dL/dpred (N, H, W) in pred's dtype.
+@_fwd_op.register_kernel("cpu")
+def _fwd_cpu(pred, target):
+    return fused_depth_loss_fwd_plain(pred, target)
 
-    mask (N,) f32 per-image weights; coef (1,) f32, the upstream gradient
-    over Σmask·H·W, read by the kernel from device memory (no host sync).
-    """
-    if pred.device.type == "cpu":
-        return fused_depth_loss_bwd_plain(pred, target, mask, coef)
-    if pred.device.type != "cuda":
-        raise ValueError(f"fused_depth_loss_bwd: unsupported device "
-                         f"{pred.device}")
+
+@_fwd_op.register_fake
+def _fwd_fake(pred, target):
+    return pred.new_empty((pred.shape[0], 4), dtype=torch.float32)
+
+
+@torch.library.custom_op("ede::fused_depth_loss_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+            coef: torch.Tensor) -> torch.Tensor:
+    """The backward op's CUDA implementation: one launch of the kernel."""
     _check_pair("fused_depth_loss_bwd", pred, target)
     n, h, w = pred.shape
     if mask.dtype != torch.float32 or coef.dtype != torch.float32 \
@@ -218,6 +220,40 @@ def fused_depth_loss_bwd(pred: torch.Tensor, target: torch.Tensor,
     build.check(lib, err, "fused_depth_loss_bwd")
     fused_depth_loss_bwd.launches += 1
     return dp
+
+
+@_bwd_op.register_kernel("cpu")
+def _bwd_cpu(pred, target, mask, coef):
+    return fused_depth_loss_bwd_plain(pred, target, mask, coef)
+
+
+@_bwd_op.register_fake
+def _bwd_fake(pred, target, mask, coef):
+    return torch.empty_like(pred)
+
+
+def fused_depth_loss_fwd(pred: torch.Tensor,
+                         target: torch.Tensor) -> torch.Tensor:
+    """Per-image loss sums (N, 4) f32: (log-L1 depth, dx, dy, normal).
+
+    pred (N, H, W) f32 or bf16, target (N, H, W) f32. ``launches`` counts
+    the kernel's launches (CPU calls do not count).
+    """
+    build.check_device("fused_depth_loss_fwd", pred.device)
+    return _fwd_op(pred, target)
+
+
+def fused_depth_loss_bwd(pred: torch.Tensor, target: torch.Tensor,
+                         mask: torch.Tensor,
+                         coef: torch.Tensor) -> torch.Tensor:
+    """dL/dpred (N, H, W) in pred's dtype.
+
+    mask (N,) f32 per-image weights; coef (1,) f32, the upstream gradient
+    over Σmask·H·W, read by the kernel from device memory (no host sync).
+    ``launches`` counts the kernel's launches (CPU calls do not count).
+    """
+    build.check_device("fused_depth_loss_bwd", pred.device)
+    return _bwd_op(pred, target, mask, coef)
 
 
 fused_depth_loss_fwd.launches = 0
@@ -246,25 +282,34 @@ def _count(mask: torch.Tensor, denominator) -> torch.Tensor:
             else mask.new_full((), float(denominator)))
 
 
-class _FusedDepthLoss(torch.autograd.Function):
+@torch.library.custom_op("ede::fused_depth_loss", mutates_args=())
+def _loss_op(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+             denominator: float | None) -> torch.Tensor:
+    """The loss of (N, H, W) pred and f32 target from the forward op's
+    sums, on every device: the sums' op dispatches by device."""
+    return masked_total(fused_depth_loss_fwd(pred, target), mask,
+                        pred.shape[1] * pred.shape[2], denominator)
 
-    @staticmethod
-    def forward(ctx, pred, target, mask, denominator):
-        p, t = _image_stack(pred).contiguous(), _image_stack(target)
-        t = t.float().contiguous()
-        ctx.save_for_backward(p, t, mask)
-        ctx.pred_shape = pred.shape
-        ctx.denominator = denominator
-        return masked_total(fused_depth_loss_fwd(p, t), mask,
-                            p.shape[1] * p.shape[2], denominator)
 
-    @staticmethod
-    def backward(ctx, g):
-        p, t, mask = ctx.saved_tensors
-        coef = (g.float() / (_count(mask, ctx.denominator)
-                             * (p.shape[1] * p.shape[2])))
-        dp = fused_depth_loss_bwd(p, t, mask, coef.reshape(1))
-        return dp.reshape(ctx.pred_shape), None, None, None
+@_loss_op.register_fake
+def _loss_fake(pred, target, mask, denominator):
+    return pred.new_empty((), dtype=torch.float32)
+
+
+def _loss_setup_context(ctx, inputs, output):
+    pred, target, mask, denominator = inputs
+    ctx.save_for_backward(pred, target, mask)
+    ctx.denominator = denominator
+
+
+def _loss_backward(ctx, g):
+    p, t, mask = ctx.saved_tensors
+    coef = (g.float() / (_count(mask, ctx.denominator)
+                         * (p.shape[1] * p.shape[2])))
+    return fused_depth_loss_bwd(p, t, mask, coef.reshape(1)), None, None, None
+
+
+_loss_op.register_autograd(_loss_backward, setup_context=_loss_setup_context)
 
 
 def fused_depth_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -277,4 +322,7 @@ def fused_depth_loss(pred: torch.Tensor, target: torch.Tensor,
     ``denominator``, which then replaces ``num_valid`` in the mean; with
     ``denominator=None`` nothing changes."""
     mask = sample_mask(pred.shape[0], num_valid, pred.device)
-    return _FusedDepthLoss.apply(pred, target, mask, denominator)
+    p = _image_stack(pred).contiguous()
+    t = _image_stack(target).float().contiguous()
+    return _loss_op(p, t, mask,
+                    None if denominator is None else float(denominator))

@@ -1,15 +1,17 @@
 """Direct-path UpProjection: conv5×5 ∘ align-corners upsample in one kernel.
 
 Counterpart of ``efficientdepthestimation_tpu/ops/pallas/upproj.py``.
-``upsample_conv`` launches the hand-written CUDA kernel in
-``csrc/upsample_conv.cu`` on CUDA tensors (bf16 on the tensor cores, with
-the output tile from ``mma_tile``; f32 on the CUDA cores); the upsampled
-intermediate never reaches device memory. On CPU tensors it runs the plain
-PyTorch version ``upsample_conv_plain``; it never falls back from one to
-the other. It is a
-``torch.autograd.Function`` whose backward is ``upsample_conv_vjp``, the VJP
-of the plain composition ``conv2d(resize(x), K)`` in x's dtype, as JAX's
-``_bwd`` takes it (``upproj.py:197-200``).
+``upsample_conv`` calls the registered op ``ede::upsample_conv``. Its CUDA
+implementation launches the hand-written kernel in ``csrc/upsample_conv.cu``
+(bf16 on the tensor cores, with the output tile from ``mma_tile``; f32 on
+the CUDA cores), so the upsampled intermediate never reaches device memory;
+its CPU implementation is the plain PyTorch version
+``upsample_conv_plain``. PyTorch's dispatcher picks one by the tensors'
+device, and neither falls back to the other. The op's autograd formula
+(``register_autograd``) is ``upsample_conv_vjp``, the VJP of the plain
+composition ``conv2d(resize(x), K)`` in x's dtype, as JAX's ``_bwd`` takes
+it (``upproj.py:197-200``); its fake implementation gives the output shape
+for ``torch.export``.
 """
 
 from __future__ import annotations
@@ -93,13 +95,11 @@ def upsample_conv_vjp(x: torch.Tensor, kernels: torch.Tensor,
             d_w.permute(2, 3, 1, 0).to(kernels.dtype).contiguous())
 
 
-def _forward(x: torch.Tensor, kernels: torch.Tensor,
-             size: tuple[int, int]) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return upsample_conv_plain(x, kernels, size)
-    if x.device.type != "cuda":
-        raise ValueError(f"upsample_conv: unsupported device {x.device}")
+def _upsample_conv_cuda(x: torch.Tensor, kernels: torch.Tensor,
+                        size: list[int]) -> torch.Tensor:
+    """The op's CUDA implementation: one launch of the kernel. A plain
+    function, so that the op's dispatch cost can be timed against a call
+    of it."""
     if x.dtype not in _DTYPES or kernels.dtype != x.dtype:
         raise TypeError("upsample_conv: x must be f32 or bf16 and kernels "
                         f"of the same dtype, got {x.dtype}, {kernels.dtype}")
@@ -132,19 +132,34 @@ def _forward(x: torch.Tensor, kernels: torch.Tensor,
     return y
 
 
-class _UpsampleConv(torch.autograd.Function):
+_upsample_conv_op = torch.library.custom_op(
+    "ede::upsample_conv", _upsample_conv_cuda, mutates_args=(),
+    device_types="cuda")
 
-    @staticmethod
-    def forward(ctx, x, kernels, size):
-        ctx.save_for_backward(x, kernels)
-        ctx.size = size
-        return _forward(x, kernels, size)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, kernels = ctx.saved_tensors
-        dx, dk = upsample_conv_vjp(x, kernels, ctx.size, g)
-        return dx, dk, None
+@_upsample_conv_op.register_kernel("cpu")
+def _upsample_conv_cpu(x, kernels, size):
+    return upsample_conv_plain(x, kernels, tuple(size))
+
+
+@_upsample_conv_op.register_fake
+def _upsample_conv_fake(x, kernels, size):
+    return x.new_empty((x.shape[0], size[0], size[1], kernels.shape[-1]))
+
+
+def _setup_context(ctx, inputs, output):
+    x, kernels, size = inputs
+    ctx.save_for_backward(x, kernels)
+    ctx.size = tuple(size)
+
+
+def _backward(ctx, g):
+    x, kernels = ctx.saved_tensors
+    dx, dk = upsample_conv_vjp(x, kernels, ctx.size, g)
+    return dx, dk, None
+
+
+_upsample_conv_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def upsample_conv(x: torch.Tensor, kernels: torch.Tensor,
@@ -153,9 +168,11 @@ def upsample_conv(x: torch.Tensor, kernels: torch.Tensor,
 
     x: (N, hs, ws, C) bf16 or f32; kernels: HWIO (5, 5, C, O) in x's dtype,
     both UpProjection branches stacked on O. Returns (N, H, W, O) in x's
-    dtype, summed in f32. Differentiable in x and kernels.
+    dtype, summed in f32. Differentiable in x and kernels. ``launches``
+    counts the kernel's launches (CPU calls do not count).
     """
-    return _UpsampleConv.apply(x, kernels, (int(size[0]), int(size[1])))
+    build.check_device("upsample_conv", x.device)
+    return _upsample_conv_op(x, kernels, [int(size[0]), int(size[1])])
 
 
 upsample_conv.launches = 0

@@ -12,6 +12,7 @@ import functools
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
 
 __all__ = [
     "bilinear_align_corners_matrix",
@@ -110,7 +111,6 @@ def pil_nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(idx, in_size - 1)
 
 
-@functools.lru_cache(maxsize=64)
 def device_constant(make, *args, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
     """``make(*args)`` as a tensor on ``device``, built and copied once.
@@ -118,8 +118,20 @@ def device_constant(make, *args, dtype: torch.dtype,
     A host-to-device copy of a pageable array inside the serving loop can
     stall the host on the stream, so each constant is kept on the device.
     It is made outside inference mode even when first asked for inside it,
-    so that a later forward with autograd may still use it.
+    so that a later forward with autograd may still use it. Within a
+    fake-tensor trace (``torch.export``, ``torch.library.opcheck``) it is
+    made anew, a constant of the traced graph, and kept out of the cache;
+    symbolic sizes are taken at their traced values.
     """
+    args = tuple(int(a) if isinstance(a, torch.SymInt) else a for a in args)
+    if detect_fake_mode() is not None:
+        return torch.as_tensor(make(*args), dtype=dtype, device=device)
+    return _cached_constant(make, *args, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_constant(make, *args, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.as_tensor(make(*args), dtype=dtype, device=device)
 

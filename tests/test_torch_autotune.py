@@ -1,7 +1,7 @@
 """The port's autotuner (``apps/autotune.py``) against the JAX package's, on
 the CPU: policy keys, serving candidates, the training CLI's resolution
 rules, both tuners writing entries that the serving fn and the training
-CLI then follow, ``bake_weights`` refused, ``--policy``,
+CLI then follow, ``bake_weights`` served, ``--policy``,
 ``--train-policy`` and ``--dw-impl`` through the CLIs' ``main``, and the
 port's console scripts.
 """
@@ -95,12 +95,21 @@ def test_policy_keys_match_jax(encoder, decoder):
     ("efficientnet-b0", "hu2018"), ("resnet50", "hu2018"),
     ("efficientnet-b0", "lasinger2019"), ("resnet18", "lasinger2019")])
 def test_serving_candidates_are_jax_minus_bake(encoder, decoder):
+    """The JAX package's candidates, in its order, plus the ``+bake``
+    variant of each "shift" and "pallas" candidate (the JAX package bakes
+    its "xla" lowering alone)."""
     ours, theirs = _models(encoder, decoder)
     for batch, int8 in itertools.product((8, 128, 256), (False, True)):
-        want = [(n, s) for n, s in jax_autotune._serving_candidates(
-            theirs, batch, int8=int8) if "+bake" not in n]
-        assert _serving_candidates(ours, batch, int8=int8) == want
-    assert len(_serving_candidates(ours, 256)) == (
+        want = jax_autotune._serving_candidates(theirs, batch, int8=int8)
+        got = _serving_candidates(ours, batch, int8=int8)
+        extra = [(n, s) for n, s in got
+                 if s.get("bake_weights") and s["dw_impl"] != "xla"]
+        assert [c for c in got if c not in extra] == want
+        base = [(n, s) for n, s in got
+                if not s.get("bake_weights") and not s.get("int8")]
+        assert extra == [(f"{n}+bake", dict(s, bake_weights=True))
+                         for n, s in base if s["dw_impl"] != "xla"]
+    assert len(_serving_candidates(ours, 256)) == 2 * (
         12 if encoder.startswith("eff") and decoder == "hu2018" else
         6 if encoder.startswith("eff") else 4 if decoder == "hu2018" else 2)
     assert jax_autotune.TILE_BATCH == autotune.TILE_BATCH == 128
@@ -149,23 +158,26 @@ def test_autotune_serving_writes_and_dispatches(rn18_hu, tmp_path):
                                  policy_path=path, warmup=0, iters=1,
                                  verbose=False, int8=True, device="cpu")
     assert [r["candidate"] for r in entry["measured"]] == [
-        "monolithic/xla", "staged/xla", "monolithic/xla+int8",
-        "staged/xla+int8"]
+        "monolithic/xla", "staged/xla", "monolithic/xla+bake",
+        "staged/xla+bake", "monolithic/xla+int8", "staged/xla+int8",
+        "monolithic/xla+bake+int8", "staged/xla+bake+int8"]
     assert all(r["fps"] > 0 for r in entry["measured"])
     assert all(0 < r["rel_out_err"] < 0.05 for r in entry["measured"]
                if r.get("int8"))
     stored = load_policy(path)[policy_key(rn18_hu, 2, None, "cpu")]
     assert stored["path"] == entry["path"] == fn.spec["path"]
-    assert stored["bake_weights"] is False
+    assert stored["bake_weights"] is fn.spec["bake_weights"]
+    keys = ("path", "dw_impl", "int8", "bake_weights")
     served = make_serving_fn(rn18_hu, batch_hint=2, policy_path=path,
                              device="cpu")
-    assert {k: served.spec[k] for k in ("path", "dw_impl", "int8")} == {
-        k: entry[k] for k in ("path", "dw_impl", "int8")}
-    ref = make_infer_fn(rn18_hu, device="cpu", int8=entry["int8"])(images)
+    assert {k: served.spec[k] for k in keys} == {k: entry[k] for k in keys}
+    ref = make_infer_fn(rn18_hu, device="cpu", int8=entry["int8"],
+                        bake_weights=entry["bake_weights"])(images)
     torch.testing.assert_close(served(images), ref, rtol=1e-5, atol=1e-5)
     other = make_serving_fn(rn18_hu, batch_hint=3, policy_path=path,
                             device="cpu")
-    assert other.spec == dict(serving_form(3), dw_impl="pallas", int8=False)
+    assert other.spec == dict(serving_form(3), dw_impl="pallas", int8=False,
+                              bake_weights=True)
 
 
 def test_autotune_serving_pairs_enb0_lowerings(tmp_path):
@@ -175,28 +187,42 @@ def test_autotune_serving_pairs_enb0_lowerings(tmp_path):
     _, entry = autotune_serving(model, 1, crop_hw=(32, 48), policy_path=path,
                                 warmup=0, iters=1, verbose=False,
                                 dtype=torch.bfloat16, device="cpu")
-    assert [r["candidate"] for r in entry["measured"]] == [
-        f"{p}/{dw}" for dw in ("xla", "shift", "pallas")
-        for p in ("monolithic", "staged")]
+    base = [f"{p}/{dw}" for dw in ("xla", "shift", "pallas")
+            for p in ("monolithic", "staged")]
+    assert [r["candidate"] for r in entry["measured"]] == base + [
+        f"{n}+bake" for n in base]
     key = policy_key(model, 1, torch.bfloat16, "cpu")
     assert key == "cpu|HuDepthModel:efficientnet-b0|b1|bfloat16"
     assert load_policy(path)[key]["dw_impl"] == entry["dw_impl"]
 
 
 def test_bake_weights_raises_naming_a16(rn18_hu, tmp_path):
-    """``bake_weights=True``, passed or in a policy entry, raises."""
+    """``bake_weights=True``, passed or in a policy entry, serves the baked
+    form (it raised, naming ROADMAP A16, until that landed): within
+    rounding of the unbaked form; an entry without the key takes the
+    passed value."""
     path = str(tmp_path / "serving_policy.json")
+    key = policy_key(rn18_hu, 4, None, "cpu")
+    entry = {"path": "monolithic", "dw_impl": "xla", "int8": False}
     with open(path, "w") as f:
-        json.dump({policy_key(rn18_hu, 4, None, "cpu"): {
-            "path": "monolithic", "dw_impl": "xla", "int8": False,
-            "bake_weights": True}}, f)
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_serving_fn(rn18_hu, batch_hint=4, policy_path=path,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        autotune.build_serving_candidate(
-            rn18_hu, {"path": "staged", "dw_impl": "xla",
-                      "bake_weights": True}, device="cpu")
+        json.dump({key: dict(entry, bake_weights=True)}, f)
+    images = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 32, 48, 3)).astype(np.float32))
+    ref = make_infer_fn(rn18_hu, device="cpu")(images)
+    served = make_serving_fn(rn18_hu, batch_hint=4, policy_path=path,
+                             bake_weights=False, device="cpu")
+    assert served.spec["bake_weights"] is True
+    torch.testing.assert_close(served(images), ref, rtol=1e-5, atol=1e-5)
+    staged = autotune.build_serving_candidate(
+        rn18_hu, {"path": "staged", "dw_impl": "xla", "bake_weights": True},
+        device="cpu")
+    torch.testing.assert_close(staged(images), ref, rtol=1e-5, atol=1e-5)
+    with open(path, "w") as f:
+        json.dump({key: entry}, f)
+    for bake in (None, False, True):
+        assert make_serving_fn(rn18_hu, batch_hint=4, bake_weights=bake,
+                               policy_path=path, device="cpu").spec[
+            "bake_weights"] is bool(bake)
     assert make_serving_fn(rn18_hu, batch_hint=4, bake_weights=False,
                            device="cpu").spec["path"] == "monolithic"
 
@@ -338,7 +364,7 @@ def test_console_scripts_import():
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
         scripts = tomllib.load(f)["project"]["scripts"]
     ours = {k: v for k, v in scripts.items() if k.startswith("ede-torch-")}
-    assert len(ours) == 12
+    assert len(ours) == 14
     for name, target in ours.items():
         module, attr = target.split(":")
         assert module.startswith("efficientdepthestimation_tpu_torch.")

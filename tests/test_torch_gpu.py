@@ -1261,3 +1261,57 @@ def test_int_mm_pads_rows_and_one_channel_on_card():
         out = _int_mm(a.cuda(), w.cuda()).cpu()
         assert out.dtype == torch.int32 and out.shape == (m, n)
         assert torch.equal(out.long(), a.long() @ w.long().t())
+
+
+# ------------------------------------------- registered ops and artifacts
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_pass_opcheck_on_card(dtype):
+    """``torch.library.opcheck`` of the ``ede::`` ops on CUDA tensors: the
+    depthwise op under stride 2 and asymmetric padding, the upsample-conv
+    op with gradients, the loss pair and the loss."""
+    _need_card()
+    x, taps, scale, bias = _dw_args(dtype)
+    torch.library.opcheck(torch.ops.ede.depthwise_bn_swish,
+                          (x, taps, scale, bias, [2, 2], [1, 2, 1, 2]))
+    x, k = _site_up_args(dtype, (14, 19), 24, 32)
+    torch.library.opcheck(torch.ops.ede.upsample_conv, (
+        x.clone().requires_grad_(), k.clone().requires_grad_(), [28, 38]))
+    pred, target = _loss_args(dtype)
+    mask = torch.ones(pred.shape[0], device="cuda")
+    torch.library.opcheck(torch.ops.ede.fused_depth_loss_fwd, (pred, target))
+    torch.library.opcheck(torch.ops.ede.fused_depth_loss_bwd, (
+        pred, target, mask, torch.full((1,), 1e-3, device="cuda")))
+    torch.library.opcheck(torch.ops.ede.fused_depth_loss, (
+        pred.clone().requires_grad_(), target, mask, None))
+
+
+@pytest.mark.parametrize("bake", [True, False])
+def test_artifact_on_card_matches_cpu_twin(bake, tmp_path):
+    """ENB0-HU's f32 artifact at batch 2, exported on the card and on the
+    CPU: launches 16 + 2 (f32 routes) a call on the card, the depth of
+    the two within the f32 model tolerance, each on its device."""
+    _need_card()
+    from efficientdepthestimation_tpu_torch.checkpoints.export import (
+        load_serving_artifact,
+        save_serving_artifact,
+    )
+
+    model = load_any_checkpoint(CHECKPOINT, device="cpu")
+    frames = torch.from_numpy(fixture_frames()[:2])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        path = tmp_path / f"{device}.edz"
+        meta = save_serving_artifact(
+            str(path), model, encoder="efficientnet-b0", decoder="hu2018",
+            batch=2, dtype=None, bake_weights=bake, device=device)
+        assert meta["device"] == device
+        fn, _ = load_serving_artifact(str(path))
+        depthwise_bn_swish.launches = upsample_conv.launches = 0
+        outs[device] = fn(frames)
+        torch.cuda.synchronize()
+        launches = (depthwise_bn_swish.launches, upsample_conv.launches)
+        assert launches == ((16, 2) if device == "cuda" else (0, 0))
+        assert outs[device].device.type == device
+    torch.testing.assert_close(outs["cuda"].cpu(), outs["cpu"], rtol=1e-3,
+                               atol=1e-3)

@@ -33,6 +33,7 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax():
     modules = _port_modules()
     for name in ("ops.kernels.depthwise", "ops.quant", "apps.autotune",
+                 "apps.export", "apps.ingest", "checkpoints.export",
                  "data.prefetch",
                  "utils.run_logger", "apps.train", "utils.image_io",
                  "checkpoints.lpips_convert", "benchmark",
@@ -81,6 +82,32 @@ def test_entry_points_need_the_card_unless_cpu(monkeypatch):
         common.make_serving_fn(registry.build_model("resnet18",
                                                     "lasinger2019"))
     assert common.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_export_entry_points_need_the_card_unless_cpu(monkeypatch,
+                                                     tmp_path):
+    """The export and ingest CLIs and ``save_serving_artifact`` run on the
+    card, and raise without one before they write anything, unless asked
+    for the CPU."""
+    from efficientdepthestimation_tpu_torch.apps import export, ingest
+    from efficientdepthestimation_tpu_torch.checkpoints import (
+        export as artifacts,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "a.edz"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.main(["--model", CHECKPOINT, "--out", str(out)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        artifacts.save_serving_artifact(
+            str(out), registry.build_model("resnet18"), encoder="resnet18",
+            decoder="hu2018")
+    assert not out.exists()
+    report = tmp_path / "INGEST_REPORT.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.main(["--source-dir", str(tmp_path), "--out-dir",
+                     str(tmp_path / "released"), "--report", str(report)])
+    assert not report.exists() and not (tmp_path / "released").exists()
 
 
 def test_eval_entry_points_need_the_card_unless_cpu(monkeypatch, tmp_path):

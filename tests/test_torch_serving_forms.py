@@ -230,16 +230,17 @@ def test_serving_rule(enb0_hu):
     for m, batch in ((model, 3), (model, TILE_ABOVE + 1), (midas, 3)):
         fn = make_serving_fn(m, batch_hint=batch, device="cpu")
         assert fn.spec == dict(serving_form(batch), dw_impl="pallas",
-                               int8=False)
+                               int8=False, bake_weights=True)
     np.testing.assert_array_equal(
-        make_serving_fn(model, batch_hint=BATCH, device="cpu")(
-            torch.from_numpy(x)).numpy(), ours)
-    assert not hasattr(make_serving_fn(model, device="cpu"), "spec")
-    with pytest.raises(NotImplementedError, match="A16"):
         make_serving_fn(model, batch_hint=BATCH, device="cpu",
-                        bake_weights=True)
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_serving_fn(model, device="cpu", bake_weights=True)
+                        bake_weights=False)(torch.from_numpy(x)).numpy(),
+        ours)
+    assert not hasattr(make_serving_fn(model, device="cpu"), "spec")
+    for kw in (dict(batch_hint=BATCH), dict(bake_weights=True)):
+        baked = make_serving_fn(model, device="cpu", **kw)(
+            torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(baked, ours, rtol=0,
+                                   atol=1e-5 * np.abs(ours).max())
 
 
 @pytest.mark.parametrize("in_hw,out_hw", [

@@ -239,9 +239,9 @@ def test_grad_snapshot_is_the_step_gradient_applied_to_nothing():
 
 # Calls of each kernel's plain version in one bf16 ENB0-HU step on the CPU,
 # which the card replaces with launches (upsample-conv, loss forward, loss
-# backward): the recompute runs the upsample-conv Function again (its
-# output is no aten operation a policy could keep), and each microbatch
-# runs the forward and the loss.
+# backward): the recompute runs the upsample-conv op again (the "dots"
+# policy keeps aten matmuls and convs, not ``ede::upsample_conv``), and
+# each microbatch runs the forward and the loss.
 KERNEL_CALLS = {"none": (5, 1, 1), "full": (10, 1, 1), "dots": (10, 1, 1),
                 "accum2": (10, 2, 2)}
 
