@@ -4,8 +4,9 @@ the route of each Hu2018 decoder site timed both ways, serving of the other
 released configurations and of DN161-HU and SN154-HU, evaluation,
 reference ``.pth`` checkpoints served and run through the apps, the
 training CLI, the user-centred benchmark, the data-parallel mesh, the
-serving forms with their policy, and the kernels as registered ops,
-constant-baked serving and the ahead-of-time serving artifact.
+serving forms with their policy, the kernels as registered ops,
+constant-baked serving and the ahead-of-time serving artifact, and
+spatial (row-sharded) serving.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -204,8 +205,21 @@ Phases, one output line each (more for the per-site detail):
      ``--parent-tree DIR`` the same of the tree in DIR (a ``git archive``
      of another commit), parent, this, this, parent, each in a process of
      its own.
+ 16. spatial serving (``make_serving_fn(mesh=..., spatial=True)``,
+     ``parallel.spatial``): the upsample-conv kernel's row window at every
+     band two ranks own of ENB0-HU's kernel sites (batch 4, bf16 and f32)
+     against its plain version and the whole-image kernel's rows, with
+     ``opcheck`` of ``ede::upsample_conv_window``, each rank's windows
+     timed beside their bound; then two processes share the card over
+     gloo (``chip_smoke.py --spatial-rank R``, as phase 13's): ENB0-HU and
+     ENB0-LR from their ``.ede`` serve the fixture's frames row-sharded at
+     batch 1 and 4 in f32 and bf16, each rank with exact launches, the
+     gathered depth against the one-rank fn's (f32 within
+     SPATIAL_F32_ATOL m, bf16 within phase 5's limits), each rank's
+     batch-1 latency and its all-reduces beside one rank's latency.
 
-It prints a JSON line of phase 15's figures, a JSON line of the serving
+It prints a JSON line of phase 16's figures, a JSON line of phase 15's
+figures, a JSON line of the serving
 forms, a JSON line of the native
 libraries' build, a JSON line of the parallelism figures, a JSON line of
 the routes' times, a JSON line of the evaluation figures, a JSON line of
@@ -353,6 +367,8 @@ from efficientdepthestimation_tpu_torch.ops.kernels.fused_loss import (
 from efficientdepthestimation_tpu_torch.ops.kernels.upproj import (
     upsample_conv,
     upsample_conv_plain,
+    upsample_conv_window,
+    upsample_conv_window_plain,
 )
 from efficientdepthestimation_tpu_torch.ops.quant import (
     quantized_convs,
@@ -363,10 +379,16 @@ from efficientdepthestimation_tpu_torch.ops.resize import (
 )
 from efficientdepthestimation_tpu_torch.parallel import (
     create_mesh,
+    gather_rows,
     maybe_initialize_distributed,
     process_local_rows,
+    spatial_sharding,
 )
 from efficientdepthestimation_tpu_torch.parallel.mesh import any_rank
+from efficientdepthestimation_tpu_torch.parallel.spatial import (
+    owned_rows,
+    upsample_conv_rows,
+)
 from efficientdepthestimation_tpu_torch.training.metrics import (
     depth_metrics_batch,
 )
@@ -510,8 +532,12 @@ POINT_RTOL = 1e-6
 PREPROCESS_ATOL = 7e-5
 # The preprocess is checked on the fixture's 480x640 frames, where its
 # Scale to 640x480 is the identity, and on the same frames resized on the
-# host to a 1080p video's 1080x1920 and to 300x500, which go through it.
-PREPROCESS_HWS = ((480, 640), (1080, 1920), (300, 500))
+# host to a 1080p video's 1080x1920 and to 300x500, which go through it
+# as downsamples (matrix products), and to 200x300 and 96x128, which go
+# through it as upsamples (ops.resize._pil_pass's elementwise sums, the
+# same bits on the card as on the CPU).
+PREPROCESS_HWS = ((480, 640), (1080, 1920), (300, 500), (200, 300),
+                  (96, 128))
 # Loss kernel pair vs its plain versions, same inputs on the card.
 #   sums: per-image sums of 17,328 O(1) terms, added in another order
 #         (threads, warps, a cluster's blocks) than the plain reduction,
@@ -3663,10 +3689,17 @@ def parallel_serve(mesh, frames, card) -> dict:
     return dict(launches=launches)
 
 
-def collective_ms(fn) -> dict:
-    """One ``fn()`` with every ``all_reduce`` and ``broadcast`` timed on the
-    host clock between two synchronizes, by kind: gradient buckets (at
+def training_collective(n: int) -> str:
+    """A training step's collective of ``n`` elements: gradient buckets (at
     least 2^16 elements), metric sums (10) and BN statistics (the rest)."""
+    return ("gradients" if n >= 1 << 16 else "metrics" if n == 10
+            else "batchnorm")
+
+
+def collective_ms(fn, kind_of=training_collective) -> dict:
+    """One ``fn()`` with every ``all_reduce`` and ``broadcast`` timed on the
+    host clock between two synchronizes, by ``kind_of`` its element
+    count."""
     spent = {}
     saved = dist.all_reduce, dist.broadcast
 
@@ -3676,10 +3709,8 @@ def collective_ms(fn) -> dict:
             t0 = time.perf_counter()
             result = collective(tensor, *args, **kwargs)
             torch.cuda.synchronize()
-            n = tensor.numel()
-            kind = ("gradients" if n >= 1 << 16 else "metrics" if n == 10
-                    else "batchnorm")
-            entry = spent.setdefault(kind, {"calls": 0, "ms": 0.0})
+            entry = spent.setdefault(kind_of(tensor.numel()),
+                                     {"calls": 0, "ms": 0.0})
             entry["calls"] += 1
             entry["ms"] += 1e3 * (time.perf_counter() - t0)
             return result
@@ -3789,10 +3820,10 @@ def cli_epoch(mesh, state, step, batch) -> dict:
                 any_rank_ms=10 * (time.perf_counter() - t0))
 
 
-def launch_ranks(tmp: str) -> None:
-    """``chip_smoke.py --parallel-rank R`` for each rank, joined by a
-    ``file://`` store in ``tmp``; a rank that fails ends the others, and
-    each rank's log tail is printed before this raises."""
+def launch_ranks(tmp: str, flag: str = "--parallel-rank") -> None:
+    """``chip_smoke.py FLAG R`` for each rank, joined by a ``file://``
+    store in ``tmp``; a rank that fails ends the others, and each rank's
+    log tail is printed before this raises."""
     env = dict(os.environ, EDE_COORDINATOR_ADDRESS=f"file://{tmp}/store",
                EDE_NUM_PROCESSES=str(PARALLEL_WORLD), EDE_DIST_TIMEOUT="120")
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -3801,8 +3832,8 @@ def launch_ranks(tmp: str) -> None:
     logs = [open(os.path.join(tmp, f"log{r}.txt"), "w")
             for r in range(PARALLEL_WORLD)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
-         str(r), tmp], env={**env, "EDE_PROCESS_ID": str(r)},
+        [sys.executable, os.path.abspath(__file__), flag, str(r), tmp],
+        env={**env, "EDE_PROCESS_ID": str(r)},
         stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
         for r in range(PARALLEL_WORLD)]
     deadline = time.monotonic() + PARALLEL_TIMEOUT_S
@@ -3933,6 +3964,9 @@ def phase_parallel(frames, card) -> dict:
 # TUNE_CONFIGS and on the ENB0-HU training step.
 FORMS_CONFIGS = ("ENB0-HU", "ENB0-LR", *RANDOM_CONFIGS)
 BIG_BATCHES = (2 * BATCH, 4 * BATCH, 8 * BATCH)
+# Two timed calls after the counted one, so that a refit of TILE_ABOVE
+# reads more than one call (on an H100 at 700 W phase 14 took 192 s so,
+# 185 s with one).
 BIG_ITERS = 2
 INT8_CONFIGS = ("RN50-HU", "SN154-HU", "DN161-HU", "ENB0-HU")
 # rel_out_err of an int8 forward against the float form of the same model
@@ -4022,14 +4056,15 @@ def int8_sites(model) -> list[dict]:
     sites, saved = {}, quant.quant_conv2d
 
     def record(x, weight, *, stride=(1, 1), padding=((0, 0), (0, 0)),
-               bias=None):
+               bias=None, amax=None):
         key = (tuple(x.shape[1:]), tuple(weight.shape), tuple(stride),
                tuple(map(tuple, padding)))
         site = sites.setdefault(key, dict(
             hw=tuple(x.shape[1:3]), cin=x.shape[-1], weight=weight,
             stride=tuple(stride), padding=padding, bias=bias, count=0))
         site["count"] += 1
-        return saved(x, weight, stride=stride, padding=padding, bias=bias)
+        return saved(x, weight, stride=stride, padding=padding, bias=bias,
+                     amax=amax)
 
     quant.quant_conv2d = record
     try:
@@ -4734,15 +4769,253 @@ def phase_ops_bake_artifact(frames, card, parent: str | None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+# Phase 16: spatial serving (apps.common.make_serving_fn(mesh=...,
+# spatial=True), parallel.spatial) by SPATIAL_WORLD processes sharing the
+# card over gloo, as phase 13's two ranks do: ENB0-HU and ENB0-LR from
+# their .ede at full width on the fixture's frames, preprocessed and
+# upsampled back to 480×640, at each of SPATIAL_BATCHES in f32 and bf16.
+# Each rank launches each kernel as one card does (its rows of every
+# level), its band gathered (parallel.gather_rows) is held against the
+# one-rank fn's output: f32 within SPATIAL_F32_ATOL metres (the bands'
+# convolutions are other shapes, whose cuDNN algorithms sum in other
+# orders), bf16 within phase 5's bf16 limits. On one card the ranks share
+# its SMs and exchange halos through the host, so spatial serving is
+# expected to cost here: their batch-1 latency is printed beside one rank's.
+SPATIAL_WORLD = 2
+SPATIAL_CONFIGS = {
+    "ENB0-HU": (CHECKPOINT, {torch.float32: ENB0_HU_F32_LAUNCHES,
+                             torch.bfloat16: ENB0_HU_LAUNCHES}),
+    "ENB0-LR": (LR_CHECKPOINT, {torch.float32: (16, 0),
+                                torch.bfloat16: (16, 0)}),
+}
+SPATIAL_BATCHES = (1, 4)
+SPATIAL_F32_ATOL = 1e-4
+SPATIAL_LATENCY_CALLS = 10
+SPATIAL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def latency_ms(serve, frames, calls: int = SPATIAL_LATENCY_CALLS
+               ) -> dict:
+    """Median and least ms of ``calls`` calls, each to its synchronize,
+    after one warm call."""
+    serve(frames)
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(frames)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return dict(median_ms=float(np.median(times)), min_ms=min(times))
+
+
+def spatial_rank(argv: list[str]) -> None:
+    """One of SPATIAL_WORLD processes of phase 16: each configuration,
+    dtype and batch served row-sharded, launches counted from 0 around the
+    call; rank 0 writes the gathered outputs, every rank its launches and
+    batch-1 latency, to the directory ``argv[1]``."""
+    rank, tmp = int(argv[0]), argv[1]
+    if not maybe_initialize_distributed(device=DEVICE, backend="gloo"):
+        raise RuntimeError("no process group from the environment")
+    mesh = create_mesh(device=f"{DEVICE}:0", backend="gloo")
+    frames = torch.from_numpy(fixture_frames()).to(DEVICE)
+    outputs, figures = {}, {}
+    for name, (path, expected) in SPATIAL_CONFIGS.items():
+        model = load_any_checkpoint(path, device=DEVICE)
+        for label, dtype in SPATIAL_DTYPES.items():
+            serve = make_serving_fn(model, mesh=mesh, spatial=True,
+                                    upsample_to=FRAME_HW, dtype=dtype,
+                                    preprocess=True)
+            for batch in SPATIAL_BATCHES:
+                band, launches = counted(
+                    lambda: serve(frames[:batch]), expected[dtype],
+                    f"{name} {label} spatial serving, rank {rank}")
+                rows = spatial_sharding(mesh).rows(FRAME_HW[0])
+                if tuple(band.shape) != (batch, rows.stop - rows.start,
+                                         FRAME_HW[1], 1):
+                    raise RuntimeError(f"rank {rank}'s band "
+                                       f"{tuple(band.shape)}")
+                whole = gather_rows(band, FRAME_HW[0], mesh)
+                if rank == 0:
+                    outputs[f"{name}/{label}/{batch}"] = whole.cpu()
+                figures[f"{name}/{label}/{batch}"] = dict(
+                    launches=list(launches.values()))
+            dist.barrier()
+            figures[f"{name}/{label}/latency"] = latency_ms(
+                serve, frames[:1])
+            dist.barrier()
+            figures[f"{name}/{label}/collectives"] = collective_ms(
+                lambda: serve(frames[:1]), lambda n: "spatial")
+        del model
+    if rank == 0:
+        torch.save(outputs, os.path.join(tmp, "outputs.pt"))
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(figures, f)
+    dist.destroy_process_group()
+
+
+def window_bound(x_rows: int, rows: int, s: dict, batch: int,
+                 itemsize: int) -> float:
+    """``up_bound`` of a window: its source rows read once, its output
+    rows written once, the conv's operations at its rows."""
+    ws, c, o = s["hw"][1], s["c"], s["o"]
+    w = s["size"][1]
+    nbytes = (batch * x_rows * ws * c + 25 * c * o + batch * rows * w * o
+              ) * itemsize
+    ops = 2 * batch * rows * w * 25 * c * o
+    rate = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    return max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / rate)
+
+
+def fenced(t: torch.Tensor, rows: int = 2) -> torch.Tensor:
+    """A contiguous copy of NHWC ``t`` between ``rows`` rows of NaN on
+    either side in memory: a kernel that reads a row outside the slice it
+    is given, even at a weight of 0, returns NaN."""
+    pad = rows * t.shape[2] * t.shape[3]
+    flat = torch.full((t.numel() + 2 * pad,), float("nan"), dtype=t.dtype,
+                      device=t.device)
+    return flat[pad:pad + t.numel()].view(t.shape).copy_(t)
+
+
+def window_checks(card) -> dict:
+    """The upsample-conv kernel's row window at every band of ENB0-HU's
+    kernel sites (D.up2-4, MFF.up1-2) that SPATIAL_WORLD ranks own, batch
+    SPATIAL_BATCHES[-1], bf16 and f32, its source rows between rows of NaN
+    in memory (``fenced``; D's steps of 0.5 put the last upsampled row of a
+    band on a source row, whose zero-weight neighbour the kernel loads):
+    against its plain version (phase 5's tolerances) and against the
+    whole-image kernel's rows; ``opcheck`` of the window op at each band;
+    each rank's windows timed (CUDA events over eager calls, summed over
+    the sites) beside their bound, their plain version's time and the
+    whole-image kernel's."""
+    model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
+    _, up_sites, _ = main_path_sites(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    batch = SPATIAL_BATCHES[-1]
+    out = {}
+    for label, dtype in SPATIAL_DTYPES.items():
+        tol = TOL[("upsample_conv", dtype)]["y"]
+        res = out[label] = dict(plain_err=0.0, whole_err=0.0, whole_ms=0.0,
+                                ranks=[dict(ms=0.0, plain_ms=0.0,
+                                            bound_ms=0.0)
+                                       for _ in range(SPATIAL_WORLD)])
+        for s in up_sites:
+            x, k = (t.detach() for t in up_inputs(s, model, dtype, gen,
+                                                  batch=batch))
+            whole = upsample_conv(x, k, s["size"])
+            res["whole_ms"] += cuda_ms(lambda: upsample_conv(x, k,
+                                                             s["size"]))
+            hs, h = s["hw"][0], s["size"][0]
+            for r in range(SPATIAL_WORLD):
+                start, stop = owned_rows(h, SPATIAL_WORLD, r)
+                lo, hi = upsample_conv_rows(start, stop, hs, h)
+                args = (fenced(x[:, lo:hi]), k, s["size"],
+                        (lo, hs, start, stop - start))
+                y = upsample_conv_window(*args)
+                e = check_close(f"{label} window {s['name']} rank {r}", y,
+                                upsample_conv_window_plain(*args), tol)
+                res["plain_err"] = max(res["plain_err"], e)
+                e = check_close(f"{label} window {s['name']} rank {r} vs "
+                                "the whole image", y, whole[:, start:stop],
+                                tol)
+                res["whole_err"] = max(res["whole_err"], e)
+                torch.library.opcheck(
+                    torch.ops.ede.upsample_conv_window,
+                    (args[0], k, list(s["size"]), list(args[3])),
+                    **({} if r == 0 else dict(test_utils=OPCHECK_QUICK)))
+                t = res["ranks"][r]
+                t["ms"] += cuda_ms(lambda: upsample_conv_window(*args))
+                t["plain_ms"] += cuda_ms(
+                    lambda: upsample_conv_window_plain(*args))
+                t["bound_ms"] += window_bound(hi - lo, stop - start, s,
+                                              batch, x.element_size())
+        log("16 spatial", f"{card}: {label} upsample-conv window at the "
+            f"{len(up_sites)} kernel sites' bands of {SPATIAL_WORLD} ranks, "
+            f"batch {batch}, NaN around each slice: max abs "
+            f"{res['plain_err']:.3g} from its plain "
+            f"version, {res['whole_err']:.3g} from the whole-image kernel's "
+            f"rows (phase 5's tolerances), opcheck passed; ms a rank "
+            f"(summed over the sites; bound, plain): " + ", ".join(
+                f"{t['ms']:.3f} ({t['bound_ms']:.3f}, {t['plain_ms']:.3f})"
+                for t in res["ranks"])
+            + f"; the whole image {res['whole_ms']:.3f}")
+    del model
+    return out
+
+
+def phase_spatial(card) -> dict:
+    """16: spatial serving (see SPATIAL_CONFIGS)."""
+    t0 = time.perf_counter()
+    window = window_checks(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_ranks(tmp, "--spatial-rank")
+        got = torch.load(os.path.join(tmp, "outputs.pt"))
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(SPATIAL_WORLD)]
+    frames = torch.from_numpy(fixture_frames()).to(DEVICE)
+    out = dict(card=card, window=window, configs={})
+    for name, (path, expected) in SPATIAL_CONFIGS.items():
+        model = load_any_checkpoint(path, device=DEVICE)
+        for label, dtype in SPATIAL_DTYPES.items():
+            serve = make_serving_fn(model, upsample_to=FRAME_HW, dtype=dtype,
+                                    preprocess=True, device=DEVICE)
+            for batch in SPATIAL_BATCHES:
+                key = f"{name}/{label}/{batch}"
+                ref = serve(frames[:batch])
+                err = (got[key].to(DEVICE) - ref).abs()
+                e_max, e_mean = err.max().item(), err.mean().item()
+                if not bool(torch.isfinite(got[key]).all()) or (
+                        e_max > SPATIAL_F32_ATOL if dtype == torch.float32
+                        else e_max > BF16_MODEL_MAX_ABS
+                        or e_mean > BF16_MODEL_MEAN_ABS):
+                    raise RuntimeError(f"{key} spatial vs one rank: max "
+                                       f"{e_max} mean {e_mean} m")
+                for r in ranks:
+                    if tuple(r[key]["launches"]) != tuple(expected[dtype]):
+                        raise RuntimeError(f"{key}: a rank launched "
+                                           f"{r[key]['launches']}")
+                out["configs"][key] = dict(max_abs=e_max, mean_abs=e_mean,
+                                           launches=ranks[0][key]["launches"])
+            one = latency_ms(serve, frames[:1])
+            ranks_ms = [r[f"{name}/{label}/latency"] for r in ranks]
+            spent = [r[f"{name}/{label}/collectives"] for r in ranks]
+            out["configs"][f"{name}/{label}/latency"] = dict(
+                one_rank=one, ranks=ranks_ms, collectives=spent)
+            limit = (SPATIAL_F32_ATOL if dtype == torch.float32
+                     else BF16_MODEL_MAX_ABS)
+            log("16 spatial", f"{card}: {name} {label}, {SPATIAL_WORLD} "
+                f"ranks over gloo on one card against one rank: batches "
+                f"{SPATIAL_BATCHES} max abs " + ", ".join(
+                    f"{out['configs'][f'{name}/{label}/{b}']['max_abs']:.3g}"
+                    for b in SPATIAL_BATCHES)
+                + f" m (<= {limit}), launches a rank {expected[dtype]}; "
+                f"batch-1 latency ms (median/least) one rank "
+                f"{one['median_ms']:.2f}/{one['min_ms']:.2f}, ranks "
+                + ", ".join(f"{m['median_ms']:.2f}/{m['min_ms']:.2f}"
+                            for m in ranks_ms)
+                + "; all-reduces of a batch-1 call, ms of the call's ms: "
+                + ", ".join(f"{c['spatial']['calls']}, "
+                            f"{c['spatial']['ms']:.1f} of "
+                            f"{c['step_ms']:.1f}" for c in spent))
+        del model
+    out["seconds"] = time.perf_counter() - t0
+    log("16 spatial", f"ok: phase 16 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if "--parallel-rank" in sys.argv:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        parallel_rank(sys.argv[sys.argv.index("--parallel-rank") + 1:])
-        return 0
+    for flag, rank_main in (("--parallel-rank", parallel_rank),
+                            ("--spatial-rank", spatial_rank)):
+        if flag in sys.argv:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            rank_main(sys.argv[sys.argv.index(flag) + 1:])
+            return 0
     # The training CLI's run logger takes wandb when it imports: local
     # files only.
     os.environ["WANDB_MODE"] = "disabled"
@@ -4787,6 +5060,7 @@ def main() -> int:
     parent = (sys.argv[sys.argv.index("--parent-tree") + 1]
               if "--parent-tree" in sys.argv else None)
     ops_bake = phase_ops_bake_artifact(frames, card, parent)
+    spatial_figures = phase_spatial(card)
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -4814,6 +5088,7 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"spatial": spatial_figures}))
     print(json.dumps({"ops_bake_artifact": ops_bake}))
     print(json.dumps({"forms": forms}))
     print(json.dumps({"native": native_info}))

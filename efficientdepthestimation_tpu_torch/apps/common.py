@@ -46,10 +46,8 @@ from efficientdepthestimation_tpu_torch.ops.quant import quantized_convs
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
-from efficientdepthestimation_tpu_torch.parallel.mesh import (
-    SPATIAL_NOT_PORTED,
-    data_sharding,
-)
+from efficientdepthestimation_tpu_torch.parallel.mesh import data_sharding
+from efficientdepthestimation_tpu_torch.parallel.spatial import row_sharded
 
 __all__ = ["resolve_device", "infer_arch_from_path", "load_any_checkpoint",
            "make_infer_fn", "make_staged_infer_fn", "make_tiled_infer_fn",
@@ -170,8 +168,18 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     In a world of one that is the whole batch. With ``local_rows=True`` the
     fn takes this rank's rows alone, as
     ``parallel.distributed_batch_iterator`` decodes them, and forwards them
-    as they are. ``spatial=True`` (image
-    rows across ranks) raises: ROADMAP A11b.
+    as they are.
+
+    ``spatial=True`` (with ``mesh``) is spatial serving instead, JAX's
+    latency mode for batches too small to data-shard: every rank takes the
+    whole batch, of any size, preprocesses the whole frames, then holds a
+    block of the image's rows (``parallel.spatial_sharding``) through the
+    forward, each conv, pool and resize computing this rank's rows from the
+    halo rows it fetches from its neighbours (``parallel.spatial``). The
+    output holds this rank's rows of the depth (``upsample_to``'s rows
+    when given) and stays on the rank; ``parallel.gather_rows`` puts it
+    together. It composes with ``dtype``, ``preprocess``, ``dw_impl``,
+    ``int8`` and ``bake_weights`` as the monolithic form does. Eval only.
 
     ``dw_impl`` ("pallas", "xla" or "shift"; ``ops.conv.depthwise_impl``)
     selects how an EfficientNet encoder's depthwise convs run; the port's
@@ -188,33 +196,37 @@ def make_infer_fn(model: nn.Module, *, upsample_to=None, dtype=None,
     so that no forward recomputes or applies them. Outputs equal the
     unbaked form's within rounding, not bit for bit.
     """
-    if spatial:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    if spatial and mesh is None:
+        raise ValueError("make_infer_fn: spatial=True needs a mesh")
     if device is None and mesh is not None:
         device = mesh.device
     return _serve(model, {}, upsample_to=upsample_to, dtype=dtype,
                   preprocess=preprocess, device=device, mesh=mesh,
                   local_rows=local_rows, dw_impl=dw_impl, int8=int8,
-                  bake_weights=bake_weights)
+                  bake_weights=bake_weights, spatial=spatial)
 
 
 def _serve(model, forward_kw: dict, *, upsample_to, dtype, preprocess,
            device, dw_impl, int8, bake_weights, mesh=None,
-           local_rows=False):
+           local_rows=False, spatial=False):
     """The serving fn of ``make_infer_fn``, calling the model with
     ``forward_kw``."""
     device = resolve_device(device)
     model = _serving_copy(model, device, dtype, bake_weights)
-    sharding = None if mesh is None or local_rows else data_sharding(mesh)
+    sharding = (None if mesh is None or local_rows or spatial
+                else data_sharding(mesh))
 
     @torch.inference_mode()
     def infer(images) -> torch.Tensor:
         if sharding is not None:
             images = images[sharding.rows(images.shape[0])]
         images = _prepare(images, device, preprocess, dtype)
-        with _mode(dw_impl, int8):
-            out = model(images, **forward_kw)
-        return _finish(out, upsample_to)
+        with _mode(dw_impl, int8), (row_sharded(mesh) if spatial
+                                    else contextlib.nullcontext()) as ctx:
+            if ctx is not None:
+                images = ctx.band(images)
+            out = _finish(model(images, **forward_kw), upsample_to)
+        return out
 
     return infer
 

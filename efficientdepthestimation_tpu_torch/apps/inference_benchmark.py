@@ -17,11 +17,15 @@ card unless ``--device cpu``:
 under a launcher (``torchrun --nproc-per-node N -m ... --data-parallel``):
 each rank decodes and forwards only its rows of every batch (``-b`` is the
 global batch, which the ranks must divide), and rank 0 reports the slowest
-rank's times and writes the summary. ``--spatial`` (image rows across
-cards) is not ported: ROADMAP A11b. ``--policy`` serves each checkpoint in
-the form the autotuner measured fastest for ``-b`` frames a call
-(``apps.autotune``), else in the form ``make_serving_fn``'s rule picks;
-``--dw-impl`` selects the depthwise mode of EfficientNet encoders.
+rank's times and writes the summary. ``--spatial``, under the same
+launcher, is spatial serving instead: every rank decodes every frame of a
+batch of any size, holds a block of the image's rows through the forward,
+exchanging halos with its neighbours (``parallel.spatial``), and keeps its
+rows of the depth; rank 0 reports the slowest rank. ``--policy`` serves
+each checkpoint in the form the autotuner measured fastest for ``-b``
+frames a call (``apps.autotune``), else in the form ``make_serving_fn``'s
+rule picks; ``--dw-impl`` selects the depthwise mode of EfficientNet
+encoders.
 """
 
 from __future__ import annotations
@@ -49,10 +53,7 @@ from efficientdepthestimation_tpu_torch.parallel import (
     distributed_batch_iterator,
     maybe_initialize_distributed,
 )
-from efficientdepthestimation_tpu_torch.parallel.mesh import (
-    SPATIAL_NOT_PORTED,
-    all_reduce_,
-)
+from efficientdepthestimation_tpu_torch.parallel.mesh import all_reduce_
 from efficientdepthestimation_tpu_torch.utils.profiling import peak_memory
 from efficientdepthestimation_tpu_torch.utils.timer import Timer
 
@@ -66,11 +67,12 @@ SUMMARY_COLUMNS = tuple((f, s) for f in TIMES for s in ("mean", "std")) + (
     ("memory_source", "first"),)
 
 
-def _batches(dataset, batch_size: int, mesh):
+def _batches(dataset, batch_size: int, mesh, spatial: bool = False):
     """The frames in batches of ``batch_size``, the last one padded: under a
-    mesh of several ranks this rank's rows of each, decoding only those
-    (``distributed_batch_iterator``)."""
-    if mesh is not None and mesh.distributed:
+    data-parallel mesh of several ranks this rank's rows of each, decoding
+    only those (``distributed_batch_iterator``); under spatial serving every
+    frame of each."""
+    if mesh is not None and mesh.distributed and not spatial:
         return distributed_batch_iterator(dataset, batch_size, mesh,
                                           pad_last=True)
     return batch_iterator(dataset, batch_size, pad_last=True)
@@ -78,14 +80,16 @@ def _batches(dataset, batch_size: int, mesh):
 
 def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
                          bf16: bool = False, device=None, mesh=None,
-                         dw_impl: str = "pallas", policy: str | None = None):
+                         dw_impl: str = "pallas", policy: str | None = None,
+                         spatial: bool = False):
     """One trial: ``(load, first call, inference)`` as ``timedelta``s, and
     ``(peak bytes, source)`` of ``utils.profiling.peak_memory``, for the
     frames of ``dataset`` (uint8 images) served by the checkpoint on
     ``device`` (the CUDA card unless ``"cpu"``; the mesh's device under
-    ``mesh``, where each rank decodes and serves its rows of each batch),
-    through ``make_serving_fn`` with ``batch_hint=batch_size``, ``dw_impl``
-    and the serving policy ``policy``."""
+    ``mesh``, where each rank decodes and serves its rows of each batch, or
+    with ``spatial`` every frame, row-sharded), through
+    ``make_serving_fn`` with ``batch_hint=batch_size``, ``dw_impl`` and the
+    serving policy ``policy``."""
     if device is None and mesh is not None:
         device = mesh.device
     device = resolve_device(device)
@@ -95,13 +99,14 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
 
     # The first call, timed on its own, keeps any one-time cost (kernel
     # builds, cuDNN's algorithm search) out of the steady inference time.
-    first_batch = next(iter(_batches(dataset, batch_size, mesh)))
+    first_batch = next(iter(_batches(dataset, batch_size, mesh, spatial)))
     frames = torch.from_numpy(first_batch["image"])
     infer = make_serving_fn(model, upsample_to=tuple(frames.shape[1:3]),
                             dtype=torch.bfloat16 if bf16 else None,
                             preprocess=True, device=device, mesh=mesh,
-                            local_rows=True, batch_hint=batch_size,
-                            dw_impl=dw_impl, policy_path=policy)
+                            spatial=spatial, local_rows=not spatial,
+                            batch_hint=batch_size, dw_impl=dw_impl,
+                            policy_path=policy)
     first_call_timer = Timer()
     with first_call_timer:
         float(infer(frames).sum())  # a host read waits for the device
@@ -109,7 +114,7 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
     inference_timer = Timer()
     last = None
     with inference_timer:
-        for batch in _batches(dataset, batch_size, mesh):
+        for batch in _batches(dataset, batch_size, mesh, spatial):
             last = infer(torch.from_numpy(batch["image"]))
         if last is not None:
             float(last.sum())
@@ -121,14 +126,15 @@ def benchmark_checkpoint(dataset, model_path: str, batch_size: int = 8,
 
 def benchmark_row(dataset, model_path: str, trial: int, batch_size: int = 8,
                   bf16: bool = False, device=None, mesh=None,
-                  dw_impl: str = "pallas", policy: str | None = None) -> dict:
+                  dw_impl: str = "pallas", policy: str | None = None,
+                  spatial: bool = False) -> dict:
     """One trial of ``benchmark_checkpoint`` as a row of the summary's
     input: seconds, the frame time over the dataset, memory and its
     source. Under a mesh of several ranks each figure is the slowest (the
     largest) rank's, on every rank."""
     load_t, first_t, infer_t, peak, mem_source = benchmark_checkpoint(
         dataset, model_path, batch_size, bf16=bf16, device=device, mesh=mesh,
-        dw_impl=dw_impl, policy=policy)
+        dw_impl=dw_impl, policy=policy, spatial=spatial)
     times = [load_t.total_seconds(), first_t.total_seconds(),
              infer_t.total_seconds(), float(peak)]
     if mesh is not None and mesh.distributed:
@@ -209,7 +215,10 @@ def main(args: Optional[List[str]] = None):
                              "a device (torchrun); -b is the global batch, "
                              "which the ranks must divide")
     parser.add_argument("--spatial", action="store_true",
-                        help="not ported: ROADMAP A11b")
+                        help="spatial serving over a mesh, one process a "
+                             "device (torchrun): image rows across the "
+                             "ranks, halos exchanged between them; any "
+                             "batch size")
     parser.add_argument("--dw-impl", default="pallas",
                         choices=("pallas", "xla", "shift"),
                         help="depthwise mode of EfficientNet encoders: the "
@@ -223,11 +232,9 @@ def main(args: Optional[List[str]] = None):
                         help="torch device (default: the CUDA card; 'cpu' "
                              "runs the kernels' plain versions)")
     args = parser.parse_args(args)
-    if args.spatial:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
 
     mesh = None
-    if args.data_parallel:
+    if args.data_parallel or args.spatial:
         maybe_initialize_distributed(device=args.device)
         mesh = create_mesh(device=args.device)
     is_main = mesh is None or mesh.rank == 0
@@ -241,7 +248,8 @@ def main(args: Optional[List[str]] = None):
         for trial in range(args.num_trials):
             row = benchmark_row(dataset, path, trial, args.batch_size,
                                 bf16=args.bf16, device=args.device, mesh=mesh,
-                                dw_impl=args.dw_impl, policy=args.policy)
+                                dw_impl=args.dw_impl, policy=args.policy,
+                                spatial=args.spatial)
             rows.append(row)
             print(f"  trial {trial + 1}/{args.num_trials}: "
                   f"load {row['load_time']:.2f}s "

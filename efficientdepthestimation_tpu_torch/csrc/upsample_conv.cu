@@ -49,6 +49,14 @@
 // Interpolation weights come from float64 arithmetic, as the host matrices
 // of the JAX and PyTorch versions do, and U is formed rows first, then
 // columns, in f32 before the one rounding to x's type.
+//
+// A row window (spatial serving, where each rank computes a band of rows):
+// y holds rows [row0, row0 + rows) of the (H, W) output, and x holds rows
+// [src0, src0 + hl) of a source of hs rows, which must include every source
+// row those output rows read. The interpolation and the conv's padding are
+// the whole image's: coordinates are global, and only the addressing of x
+// and y moves. The whole image is the window (0, hs, 0, H), whose arithmetic
+// is the same instruction for instruction.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,8 +103,9 @@ constexpr int kThreads = kTileW * kThreadRows;
 
 __global__ void __launch_bounds__(kThreads)
 upsample_conv_f32(const float* __restrict__ x, const float* __restrict__ kern,
-                  float* __restrict__ y, int hs, int ws, int C, int H, int W,
-                  int O, int o_tiles) {
+                  float* __restrict__ y, int hl, int src0, int hs, int ws,
+                  int C, int H, int W, int O, int row0, int rows,
+                  int o_tiles) {
   __shared__ float patch[kChunkC][kPatchH][kPatchW];
   __shared__ __align__(16) float wts[kChunkC][kTaps * kTaps][kTileO];
 
@@ -105,11 +114,13 @@ upsample_conv_f32(const float* __restrict__ x, const float* __restrict__ kern,
   const int ty = tid / kTileW;
   const int n = blockIdx.z / o_tiles;
   const int o0 = (blockIdx.z % o_tiles) * kTileO;
-  const int P0 = blockIdx.y * kTileH;
+  const int P0 = row0 + blockIdx.y * kTileH;
   const int Q0 = blockIdx.x * kTileW;
   const double step_h = align_step(hs, H);
   const double step_w = align_step(ws, W);
-  const float* xn = x + (size_t)n * hs * ws * C;
+  const float* xn = x + (size_t)n * hl * ws * C;
+  // U rows past the window's reach feed no row of y: zero, never read
+  const int r_end = min(H, row0 + rows + kHalo);
 
   float acc[kRowsPerThread][kTileO];
 #pragma unroll
@@ -128,11 +139,12 @@ upsample_conv_f32(const float* __restrict__ x, const float* __restrict__ kern,
       const int R = P0 - kHalo + pr;
       const int Q = Q0 - kHalo + pc;
       float v = 0.f;
-      if (c < C && R >= 0 && R < H && Q >= 0 && Q < W) {
+      if (c < C && R >= 0 && R < r_end && Q >= 0 && Q < W) {
         int r0, r1, q0, q1;
         float wr0, wr1, wq0, wq1;
         source(R, step_h, hs, &r0, &r1, &wr0, &wr1);
         source(Q, step_w, ws, &q0, &q1, &wq0, &wq1);
+        r0 -= src0, r1 -= src0;
         // rows first, then columns, as the separable matrix form does
         const float t0 = wr0 * xn[((size_t)r0 * ws + q0) * C + c] +
                          wr1 * xn[((size_t)r1 * ws + q0) * C + c];
@@ -185,8 +197,8 @@ upsample_conv_f32(const float* __restrict__ x, const float* __restrict__ kern,
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
     const int P = P0 + ty + r * kThreadRows;
-    if (P < H && Q < W) {
-      float* yp = y + (((size_t)n * H + P) * W + Q) * O + o0;
+    if (P < row0 + rows && Q < W) {
+      float* yp = y + (((size_t)n * rows + (P - row0)) * W + Q) * O + o0;
 #pragma unroll
       for (int j = 0; j < kTileO; ++j)
         if (o0 + j < O) yp[j] = acc[r][j];
@@ -195,14 +207,15 @@ upsample_conv_f32(const float* __restrict__ x, const float* __restrict__ kern,
 }
 
 cudaError_t launch_f32(const void* x, const void* kern, void* y, int N,
-                       int hs, int ws, int C, int H, int W, int O,
-                       cudaStream_t stream) {
+                       int hl, int src0, int hs, int ws, int C, int H, int W,
+                       int O, int row0, int rows, cudaStream_t stream) {
   const int o_tiles = (O + kTileO - 1) / kTileO;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH,
+  const dim3 grid((W + kTileW - 1) / kTileW, (rows + kTileH - 1) / kTileH,
                   N * o_tiles);
   upsample_conv_f32<<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(kern),
-      static_cast<float*>(y), hs, ws, C, H, W, O, o_tiles);
+      static_cast<float*>(y), hl, src0, hs, ws, C, H, W, O, row0, rows,
+      o_tiles);
   return cudaGetLastError();
 }
 
@@ -239,6 +252,8 @@ struct MmaParams {
   const bf16* k;
   bf16* y;
   int N, hs, ws, C, H, W, O;
+  int hl, src0;          // x's rows and the first one's source row
+  int row0, rows;        // y's rows of the output: [row0, row0 + rows)
   int th, tw, tiles_x;   // output tile and tiles along W
   int tiles;             // tiles an image
   int n_block;           // output channels a block (8 * NT)
@@ -503,19 +518,24 @@ upsample_conv_mma(const MmaParams p) {
       const bool is_row = i < L.ph;
       const int at = is_row ? P0 - kHalo + i : Q0 - kHalo + (i - L.ph);
       Src s = {-1, -1, 0.f, 0.f};
-      if (at >= 0 && at < (is_row ? p.H : p.W))
+      // U rows past the window's reach feed no row of y: zero, never read
+      const int end = is_row ? min(p.H, p.row0 + p.rows + kHalo) : p.W;
+      if (at >= 0 && at < end)
         source(at, is_row ? step_h : step_w, is_row ? p.hs : p.ws, &s.lo,
                &s.hi, &s.w_lo, &s.w_hi);
-      if (is_row)
+      if (is_row) {
+        if (s.lo >= 0) s.lo -= p.src0, s.hi -= p.src0;
         rows[i] = s;
-      else
-        cols[i - L.ph] = s;
+      }
+      if (!is_row) cols[i - L.ph] = s;
     }
     static_assert(kMmaThreads == kBlockM, "a thread a GEMM row");
     const int r = tid / p.tw;
     const int P = P0 + r;
     const int Q = Q0 + tid - r * p.tw;
-    where[tid] = r < p.th && P < p.H && Q < p.W ? P * p.W + Q : -1;
+    where[tid] =
+        r < p.th && P < p.row0 + p.rows && Q < p.W ? (P - p.row0) * p.W + Q
+                                                   : -1;
   };
 
   // U of chunk ch on the patch (the sources filled and visible).
@@ -585,7 +605,7 @@ upsample_conv_mma(const MmaParams p) {
       }
     }
     __syncthreads();
-    bf16* yn = p.y + (size_t)n * p.H * p.W * p.O + o0;
+    bf16* yn = p.y + (size_t)n * p.rows * p.W * p.O + o0;
     // A fixed unit of O for each thread, pixels in steps.
     const int vec = p.vec_y;
     const int units = p.n_block / vec;
@@ -626,9 +646,10 @@ upsample_conv_mma(const MmaParams p) {
       const int tile = t - n * p.tiles;
       zero_acc();
       __syncthreads();  // the last tile's epilogue is done
-      fill_sources((tile / p.tiles_x) * p.th, (tile % p.tiles_x) * p.tw);
+      fill_sources(p.row0 + (tile / p.tiles_x) * p.th,
+                   (tile % p.tiles_x) * p.tw);
       __syncthreads();
-      fill_patch(p.x + (size_t)n * p.hs * p.ws * C, 0);
+      fill_patch(p.x + (size_t)n * p.hl * p.ws * C, 0);
       cp_async_wait<0>();
       __syncthreads();  // the patch (and, the first time, K) landed
       for (int s = 0; s < total; ++s) mma_stage(s);
@@ -639,14 +660,14 @@ upsample_conv_mma(const MmaParams p) {
 
   // Streaming: one tile; K through the ring, a stage ahead.
   const int n = blockIdx.z;
-  const bf16* xn = p.x + (size_t)n * p.hs * p.ws * C;
+  const bf16* xn = p.x + (size_t)n * p.hl * p.ws * C;
   zero_acc();
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     stage_k(s);
     cp_async_commit();
   }
-  fill_sources((blockIdx.x / p.tiles_x) * p.th,
+  fill_sources(p.row0 + (blockIdx.x / p.tiles_x) * p.th,
                (blockIdx.x % p.tiles_x) * p.tw);
   int ch_now = -1;
   for (int s = 0; s < total; ++s) {
@@ -729,8 +750,9 @@ bool choose_tile(int H, int W, int C, int O, int* th_out, int* tw_out) {
 }
 
 cudaError_t launch_bf16(const void* x, const void* kern, void* y, int N,
-                        int hs, int ws, int C, int H, int W, int O, int th,
-                        int tw, cudaStream_t stream) {
+                        int hl, int src0, int hs, int ws, int C, int H, int W,
+                        int O, int row0, int rows, int th, int tw,
+                        cudaStream_t stream) {
   if (th <= 0 || tw <= 0 || th * tw > kBlockM) return cudaErrorInvalidValue;
   const int o_chunks = cdiv(O, 8 * kMaxNT);
   const int nt = n_tiles(O);
@@ -739,8 +761,9 @@ cudaError_t launch_bf16(const void* x, const void* kern, void* y, int N,
   p.k = static_cast<const bf16*>(kern);
   p.y = static_cast<bf16*>(y);
   p.N = N, p.hs = hs, p.ws = ws, p.C = C, p.H = H, p.W = W, p.O = O;
+  p.hl = hl, p.src0 = src0, p.row0 = row0, p.rows = rows;
   p.th = th, p.tw = tw, p.tiles_x = (W + tw - 1) / tw;
-  p.tiles = p.tiles_x * ((H + th - 1) / th);
+  p.tiles = p.tiles_x * ((rows + th - 1) / th);
   p.n_block = 8 * nt;
   const auto aligned = [](const void* ptr) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
@@ -779,16 +802,33 @@ cudaError_t launch_bf16(const void* x, const void* kern, void* y, int N,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. (th, tw): the bf16 kernel's output tile
-// (th * tw <= 256), ede_upsample_conv_tile's; the f32 kernel ignores it.
-// Returns a cudaError_t (0 on success).
+// (th * tw <= 256), ede_upsample_conv_tile's for (rows, W); the f32 kernel
+// ignores it. x holds source rows [src0, src0 + hl) of hs, y output rows
+// [row0, row0 + rows) of H (the row window above). Returns a cudaError_t
+// (0 on success).
+int ede_upsample_conv_window(int dtype, const void* x, const void* kern,
+                             void* y, int N, int hl, int src0, int hs, int ws,
+                             int C, int H, int W, int O, int row0, int rows,
+                             int th, int tw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (src0 < 0 || hl <= 0 || src0 + hl > hs || row0 < 0 || rows <= 0 ||
+      row0 + rows > H)
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_f32(x, kern, y, N, hl, src0, hs, ws, C, H, W, O, row0,
+                      rows, s);
+  if (dtype == 1)
+    return launch_bf16(x, kern, y, N, hl, src0, hs, ws, C, H, W, O, row0,
+                       rows, th, tw, s);
+  return cudaErrorInvalidValue;
+}
+
+// The whole image: the window (0, hs, 0, H).
 int ede_upsample_conv(int dtype, const void* x, const void* kern, void* y,
                       int N, int hs, int ws, int C, int H, int W, int O,
                       int th, int tw, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(x, kern, y, N, hs, ws, C, H, W, O, s);
-  if (dtype == 1)
-    return launch_bf16(x, kern, y, N, hs, ws, C, H, W, O, th, tw, s);
-  return cudaErrorInvalidValue;
+  return ede_upsample_conv_window(dtype, x, kern, y, N, hs, 0, hs, ws, C, H,
+                                  W, O, 0, H, th, tw, stream);
 }
 
 // The bf16 kernel's output tile for an (H, W) output of C -> O channels

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from efficientdepthestimation_tpu_torch.models.common import BatchNorm, Conv
-from efficientdepthestimation_tpu_torch.ops.conv import max_pool
+from efficientdepthestimation_tpu_torch.ops.conv import avg_pool, max_pool
 
 __all__ = ["DenseNetFeatures", "DenseLayer", "DENSENET_CONFIGS",
            "densenet_block_channels"]
@@ -68,8 +68,7 @@ class DenseLayer(nn.Module):
 
 def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2×2 average pool, stride 2, no padding, of NHWC ``x``."""
-    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(
-        0, 2, 3, 1).contiguous()
+    return avg_pool(x, 2, 2)
 
 
 class DenseNetFeatures(nn.Module):

@@ -28,12 +28,14 @@ from efficientdepthestimation_tpu_torch.models.common import (
     per_sample_uniform,
 )
 from efficientdepthestimation_tpu_torch.ops.conv import (
+    avg_pool_global,
     depthwise_mode,
     same_padding_static,
 )
 from efficientdepthestimation_tpu_torch.ops.kernels.depthwise import (
     depthwise_bn_swish,
 )
+from efficientdepthestimation_tpu_torch.parallel.spatial import global_hw
 
 __all__ = ["EfficientNetFeatures", "MBConvBlock", "EFFICIENTNET_PARAMS",
            "efficientnet_block_channels", "efficientnet_stage_splits"]
@@ -171,7 +173,8 @@ class MBConvBlock(nn.Module):
         x, sums = depthwise_bn_swish(x, taps, scale, shift,
                                      stride=self.stride, padding=self.pad)
         if self.has_se:
-            mean = (sums / (x.shape[1] * x.shape[2])).to(x.dtype)
+            h, w = global_hw(x)  # a band's sums are the whole plane's
+            mean = (sums / (h * w)).to(x.dtype)
             sq = F.silu(self._se_reduce(mean[:, None, None, :]))
             x = torch.sigmoid(self._se_expand(sq)) * x
         x = self._bn2(self._project_conv(x))
@@ -189,7 +192,7 @@ class MBConvBlock(nn.Module):
             x = F.silu(self._bn0(self._expand_conv(x)))
         x = F.silu(self._bn1(self._depthwise_conv(x)))
         if self.has_se:
-            squeezed = x.mean(dim=(1, 2), keepdim=True)
+            squeezed = avg_pool_global(x)
             squeezed = F.silu(self._se_reduce(squeezed))
             x = torch.sigmoid(self._se_expand(squeezed)) * x
         x = self._bn2(self._project_conv(x))

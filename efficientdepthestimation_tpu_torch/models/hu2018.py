@@ -38,6 +38,7 @@ from efficientdepthestimation_tpu_torch.ops.norm import batch_norm
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
+from efficientdepthestimation_tpu_torch.parallel.spatial import global_hw
 
 __all__ = ["UpProjection", "DecoderD", "MFF", "RefineR", "HuDepthModel",
            "mff_apply_merged"]
@@ -86,12 +87,13 @@ class UpProjection(nn.Module):
         k = (self.baked_kernels if self.baked_kernels is not None
              else self._stacked(x.dtype))
         bias = self.baked_bias
-        if should_fuse(tuple(x.shape[1:3]), tuple(size), cin, f, x.dtype):
+        if should_fuse(global_hw(x), tuple(size), cin, f, x.dtype):
             b = upsample_conv_stacked(x, k, size)
         elif quant.should_quantize((5, 5, cin, 2 * f), 1, (1, 1)):
-            b = quant.quant_conv2d(resize_bilinear_align_corners(x, size),
-                                   k.permute(3, 2, 0, 1).contiguous(),
-                                   padding=((2, 2), (2, 2)), bias=bias)
+            # conv2d takes this gate's int8 route
+            b = conv2d(resize_bilinear_align_corners(x, size),
+                       k.permute(3, 2, 0, 1).contiguous(), padding=2,
+                       bias=bias)
             bias = None
         else:
             b = upsample_conv(x, k, size)
@@ -123,10 +125,11 @@ class DecoderD(nn.Module):
     def forward(self, taps: Sequence[torch.Tensor]) -> torch.Tensor:
         b1, b2, b3, b4 = taps
         x = F.relu(self.bn(self.conv(b4)))
-        x = self.up1(x, tuple(b3.shape[1:3]))
-        x = self.up2(x, tuple(b2.shape[1:3]))
-        x = self.up3(x, tuple(b1.shape[1:3]))
-        return self.up4(x, (b1.shape[1] * 2, b1.shape[2] * 2))
+        x = self.up1(x, global_hw(b3))
+        x = self.up2(x, global_hw(b2))
+        h1, w1 = global_hw(b1)
+        x = self.up3(x, (h1, w1))
+        return self.up4(x, (h1 * 2, w1 * 2))
 
 
 class MFF(nn.Module):
@@ -240,7 +243,7 @@ class HuDepthModel(nn.Module):
         the backward needs)."""
         taps = self.E(x, generator=generator)
         x_d = self.D(taps)
-        size = tuple(x_d.shape[1:3])
+        size = global_hw(x_d)
         if mff_merge == "module":
             x_mff = self.MFF(taps, size)
         else:

@@ -35,6 +35,7 @@ from efficientdepthestimation_tpu_torch.ops.conv import avg_pool_global
 from efficientdepthestimation_tpu_torch.ops.resize import (
     resize_bilinear_align_corners,
 )
+from efficientdepthestimation_tpu_torch.parallel.spatial import global_hw
 
 __all__ = ["ResidualBlock", "BottleneckBlock", "DecoderBlock",
            "MidasDecoder", "MidasNet", "Discriminator"]
@@ -143,7 +144,7 @@ class MidasDecoder(nn.Module):
     def decode(self, taps: Sequence[torch.Tensor]) -> torch.Tensor:
         """The decoder blocks over the taps: features at twice the first
         tap's size."""
-        sizes = [tuple(t.shape[1:3]) for t in reversed(taps[:-1])]
+        sizes = [global_hw(t) for t in reversed(taps[:-1])]
         sizes.append((sizes[-1][0] * 2, sizes[-1][1] * 2))
         out = None
         for block, enc, size in zip(self.blocks, reversed(taps), sizes):

@@ -8,6 +8,12 @@ comes back ``channels_last`` and permutes back to contiguous NHWC for free.
 ``depthwise_impl`` selects how depthwise convs (groups == channels) are
 computed, and ``ops.quant.quantized_convs`` routes eligible dense convs
 through int8; ``conv2d`` reads both at call time.
+
+Under ``parallel.spatial.row_sharded`` (spatial serving) the convs and
+pools here take this rank's band of rows: each computes its own block of
+output rows from the input rows that block reads, the halo fetched from the
+ranks that own it, with the op's padding only at the image's real top and
+bottom; ``avg_pool_global`` all-reduces the bands' sums.
 """
 
 from __future__ import annotations
@@ -19,9 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from efficientdepthestimation_tpu_torch.ops import quant as _quant
+from efficientdepthestimation_tpu_torch.parallel import spatial
 
 __all__ = ["conv2d", "depthwise_impl", "depthwise_mode", "same_padding_static",
-           "norm_padding", "max_pool", "avg_pool_global"]
+           "norm_padding", "max_pool", "avg_pool", "avg_pool_global"]
 
 # How depthwise convs are computed, read at call time (JAX binds it at
 # trace time; an eager forward has no trace, so a serving fn enters its
@@ -106,15 +113,32 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, *,
     """
     pads = norm_padding(padding)
     cout, cin_g, kh, kw = weight.shape
+    s = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    quantized = _quant.should_quantize((kh, kw, cin_g * groups, cout),
+                                       groups, (1, 1))
+    ctx = spatial.active()
+    amax = None
+    if ctx is not None and quantized:
+        # the one-process scale, the whole input's amax, for every
+        # quantized conv (a 1×1 one too): every rank enters the reduction
+        amax = ctx.max(x.float().abs().amax() if x.shape[1]
+                       else x.new_zeros((), dtype=torch.float32))
+    if ctx is not None and (kh, s[0], pads[0]) != (1, 1, (0, 0)):
+        (pt, pb), (pl, pr) = pads
+        x, above, below, out_h = ctx.window(x, kh, s[0], pt, pb)
+        ctx.note(out_h, (x.shape[2] + pl + pr - kw) // s[1] + 1)
+        pads = ((above, below), (pl, pr))
+    if ctx is not None and x.shape[1] == 0:  # a rank without rows here
+        (_, _), (pl, pr) = pads
+        return x.new_zeros((x.shape[0], 0,
+                            (x.shape[2] + pl + pr - kw) // s[1] + 1, cout))
     if (_DEPTHWISE_IMPL == "shift" and groups > 1 and groups == x.shape[-1]
             and cin_g == 1 and cout == groups):
         out = _depthwise_shifted(x, weight, stride, pads)
         return out if bias is None else out + bias.to(out.dtype)
-    if _quant.quant_enabled() and _quant.should_quantize(
-            (kh, kw, cin_g * groups, cout), groups, (1, 1)):
-        s = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    if quantized:
         return _quant.quant_conv2d(x, weight, stride=s, padding=pads,
-                                   bias=bias)
+                                   bias=bias, amax=amax)
     (pt, pb), (pl, pr) = pads
     if pt != pb or pl != pr:
         x = F.pad(x, (0, 0, pl, pr, pt, pb))
@@ -152,11 +176,46 @@ def max_pool(x: torch.Tensor, window: int | tuple[int, int],
     -inf, and ``ceil_mode`` keeps a last partial window that starts inside
     the input or its left padding (SENet's stem pools), as the JAX
     package's ``max_pool`` reproduces (``ops/conv.py:203-212`` there)."""
+    k, s, p = (_pair(window)[0], _pair(stride)[0], _pair(padding)[0])
+    ctx = spatial.active()
+    if ctx is not None:
+        x, above, below, out_h = ctx.window(x, k, s, p, p, ceil_mode)
+        out_w = spatial.window_out_height(x.shape[2], k, s, p, p, ceil_mode)
+        ctx.note(out_h, out_w)
+        if x.shape[1] == 0:
+            return x.new_zeros((x.shape[0], 0, out_w, x.shape[3]))
+        # the rows' padding, -inf, is explicit; the columns' stays the op's
+        x = F.pad(x, (0, 0, 0, 0, above, below), value=float("-inf"))
+        padding = (0, _pair(padding)[1])
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding,
                      ceil_mode=ceil_mode)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def avg_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Average pooling of NHWC ``x`` without padding (DenseNet's
+    transitions)."""
+    ctx = spatial.active()
+    if ctx is not None:
+        x, _, _, out_h = ctx.window(x, window, stride, 0, 0)
+        out_w = spatial.window_out_height(x.shape[2], window, stride, 0, 0)
+        ctx.note(out_h, out_w)
+        if x.shape[1] == 0:
+            return x.new_zeros((x.shape[0], 0, out_w, x.shape[3]))
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(
+        0, 2, 3, 1).contiguous()
+
+
 def avg_pool_global(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
-    """Mean over H and W of NHWC ``x`` (``nn.AdaptiveAvgPool2d(1)``)."""
-    return x.mean(dim=(1, 2), keepdim=keepdims)
+    """Mean over H and W of NHWC ``x`` (``nn.AdaptiveAvgPool2d(1)``); of a
+    band, the bands' sums all-reduced over the global plane."""
+    ctx = spatial.active()
+    if ctx is None:
+        return x.mean(dim=(1, 2), keepdim=keepdims)
+    h, w = spatial.global_hw(x)
+    total = ctx.sum(x.float().sum(dim=(1, 2), keepdim=keepdims))
+    return (total / (h * w)).to(x.dtype)
+
+
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)

@@ -26,6 +26,7 @@ from efficientdepthestimation_tpu_torch.ops.resize import (
     bilinear_align_corners_matrix,
     device_constant,
 )
+from efficientdepthestimation_tpu_torch.parallel import spatial
 
 __all__ = ["should_fuse", "upsample_conv_pair", "upsample_conv_stacked"]
 
@@ -69,15 +70,38 @@ def _shifted_matrices(in_size: int, out_size: int, taps: int = 5) -> np.ndarray:
     return shifted
 
 
+def _band_shifted(in_size: int, out_size: int, taps: int, start: int,
+                  stop: int, lo: int, hi: int) -> np.ndarray:
+    """Output rows ``[start, stop)`` and source rows ``[lo, hi)`` of
+    ``_shifted_matrices``."""
+    return _shifted_matrices(in_size, out_size, taps)[:, start:stop, lo:hi]
+
+
 def upsample_conv_stacked(x: torch.Tensor, kernels: torch.Tensor,
                           size: tuple[int, int]) -> torch.Tensor:
     """``conv2d(resize_bilinear_align_corners(x, size), kernels, pad=taps//2)``
-    for NHWC ``x`` and HWIO ``kernels`` (taps, taps, ci, co); (n, H, W, co)."""
+    for NHWC ``x`` and HWIO ``kernels`` (taps, taps, ci, co); (n, H, W, co).
+    Of a band of rows (``parallel.spatial.row_sharded``), this rank's rows
+    of it: the row matrices' rows of the block, applied to the source rows
+    they read, fetched from their owners."""
     taps = kernels.shape[0]
     _, hs, ws, _ = x.shape
     h_out, w_out = int(size[0]), int(size[1])
     kw = dict(dtype=x.dtype, device=x.device)
-    a = device_constant(_shifted_matrices, hs, h_out, taps, **kw)
+    ctx = spatial.active()
+    if ctx is None:
+        a = device_constant(_shifted_matrices, hs, h_out, taps, **kw)
+    else:
+        hs = ctx.height(x)
+
+        def reads(start, stop):
+            return spatial.upsample_conv_rows(start, stop, hs, h_out, taps)
+
+        x = ctx.fetch(x, hs, h_out, reads)
+        start, stop = ctx.rows(h_out)
+        a = device_constant(_band_shifted, hs, h_out, taps, start, stop,
+                            *reads(start, stop), **kw)
+        ctx.note(h_out, w_out)
     b = device_constant(_shifted_matrices, ws, w_out, taps, **kw)
     z = torch.einsum("nhwc,pqco->nhwpqo", x, kernels.to(x.dtype))
     v = torch.einsum("qWw,nhwpqo->nhWpo", b, z)

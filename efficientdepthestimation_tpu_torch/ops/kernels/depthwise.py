@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from efficientdepthestimation_tpu_torch.ops.conv import norm_padding
 from efficientdepthestimation_tpu_torch.ops.kernels import build
+from efficientdepthestimation_tpu_torch.parallel import spatial
 
 __all__ = ["depthwise_bn_swish", "depthwise_bn_swish_plain"]
 
@@ -203,11 +204,31 @@ def depthwise_bn_swish(x: torch.Tensor, taps: torch.Tensor,
     before the cast, so the squeeze-excite mean is ``sums / (oh * ow)``.
     On the card the sums are the same, bit for bit, from launch to launch.
     ``launches`` counts the kernel's launches (CPU calls do not count).
+
+    Of a band of rows (``parallel.spatial.row_sharded``): the kernel takes
+    the input rows of this rank's output rows, the halo fetched from their
+    owners, with ``padding`` only where they meet the image's top and
+    bottom, and ``y`` is this rank's rows; the sums are all-reduced, the
+    whole plane's. A rank that owns no output rows launches nothing.
     """
     build.check_device("depthwise_bn_swish", x.device)
     (pt, pb), (pl, pr) = norm_padding(padding)
-    return _depthwise_op(x, taps, scale, bias, list(_pair(stride)),
-                         [pt, pb, pl, pr])
+    ctx = spatial.active()
+    if ctx is None:
+        return _depthwise_op(x, taps, scale, bias, list(_pair(stride)),
+                             [pt, pb, pl, pr])
+    k, (sh, sw) = taps.shape[0], _pair(stride)
+    x, above, below, out_h = ctx.window(x, k, sh, pt, pb)
+    b, _, w, c = x.shape
+    ow = (w + pl + pr - k) // sw + 1
+    ctx.note(out_h, ow)
+    if x.shape[1]:
+        y, sums = _depthwise_op(x.contiguous(), taps, scale, bias, [sh, sw],
+                                [above, below, pl, pr])
+    else:
+        y = x.new_zeros((b, 0, ow, c))
+        sums = torch.zeros((b, c), dtype=torch.float32, device=x.device)
+    return y, ctx.sum(sums)
 
 
 depthwise_bn_swish.launches = 0

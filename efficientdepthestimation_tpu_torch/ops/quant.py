@@ -135,13 +135,15 @@ def int_conv2d(xq: torch.Tensor, kq: torch.Tensor, stride=(1, 1),
 
 
 def quant_conv2d(x: torch.Tensor, weight: torch.Tensor, *, stride=(1, 1),
-                 padding=((0, 0), (0, 0)),
-                 bias: torch.Tensor | None = None) -> torch.Tensor:
+                 padding=((0, 0), (0, 0)), bias: torch.Tensor | None = None,
+                 amax: torch.Tensor | None = None) -> torch.Tensor:
     """Dense conv of NHWC ``x`` and OIHW ``weight`` as s8×s8→s32 with an
     exact dequantize; the output has x's dtype. ``padding`` is
-    ((top, bottom), (left, right)) of zeros."""
+    ((top, bottom), (left, right)) of zeros. ``amax``, the f32 maximum of
+    |x| that sets the activations' scale, defaults to ``x``'s own; a band
+    of rows (spatial serving) passes the whole input's."""
     xf = x.float()
-    s_x = _per_127(xf.abs().amax())
+    s_x = _per_127(xf.abs().amax() if amax is None else amax)
     xq = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
     kq, s_w = quantize_kernel(weight)
     y = int_conv2d(xq, kq, tuple(stride), padding)

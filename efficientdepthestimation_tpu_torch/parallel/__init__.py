@@ -3,6 +3,7 @@
 from efficientdepthestimation_tpu_torch.parallel.mesh import (
     create_mesh,
     data_sharding,
+    gather_rows,
     replicated_sharding,
     shard_batch,
     scale_batch_size,

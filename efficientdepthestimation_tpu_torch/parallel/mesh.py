@@ -16,9 +16,11 @@ CUDA tensors (two ranks sharing one card, where NCCL refuses).
 
 The shardings are row-ownership descriptors rather than device layouts:
 ``data_sharding`` says which rows of a batch a rank holds,
-``replicated_sharding`` that every rank holds all of them.
-``spatial_sharding`` (image rows across ranks, GSPMD's halo exchange in
-JAX) is described but not ported: using it raises (ROADMAP A11b).
+``replicated_sharding`` that every rank holds all of them, and
+``spatial_sharding`` which *image* rows a rank holds in spatial serving
+(``parallel.spatial``, where the port writes out the halo exchanges that
+GSPMD compiles in JAX); ``gather_rows`` puts a row-sharded output back
+together.
 """
 
 from __future__ import annotations
@@ -30,13 +32,14 @@ import os
 import torch
 import torch.distributed as dist
 
+from efficientdepthestimation_tpu_torch.parallel.spatial import owned_rows
+
 __all__ = ["Mesh", "RowSharding", "create_mesh", "data_sharding",
-           "replicated_sharding", "spatial_sharding", "shard_batch",
-           "scale_batch_size", "zero1_shardings", "zero1_state_shardings",
-           "all_reduce_", "all_reduce_flat",
+           "replicated_sharding", "spatial_sharding", "gather_rows",
+           "shard_batch", "scale_batch_size", "zero1_shardings",
+           "zero1_state_shardings", "all_reduce_", "all_reduce_flat",
            "differentiable_all_reduce",
-           "broadcast_flat", "any_rank", "collective_timeout",
-           "SPATIAL_NOT_PORTED"]
+           "broadcast_flat", "any_rank", "collective_timeout"]
 
 #: Seconds a collective may wait before it raises, unless the environment
 #: sets ``EDE_DIST_TIMEOUT``.
@@ -45,10 +48,6 @@ DEFAULT_TIMEOUT_S = 1800.0
 #: Elements of one flat bucket of ``all_reduce_flat``/``broadcast_flat``
 #: (64 MiB of f32): few collectives a step, and a bounded staging copy.
 BUCKET_ELEMENTS = 1 << 24
-
-SPATIAL_NOT_PORTED = ("spatial (row-sharded) serving is not ported: PyTorch "
-                      "has no partitioner to write the halo exchange through "
-                      "every conv and align-corners resize (ROADMAP A11b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,18 +144,21 @@ def create_mesh(n_devices: int | None = None, model_parallel: int = 1, *,
 
 @dataclasses.dataclass(frozen=True)
 class RowSharding:
-    """Which rows of a batch this rank holds: ``kind`` is "data" (an equal
-    contiguous block a data index, in rank order), "replicated" (all) or
-    "spatial" (image rows; not ported)."""
+    """Which rows this rank holds: ``kind`` is "data" (an equal contiguous
+    block of a batch a data index, in rank order), "replicated" (all) or
+    "spatial" (a block of an image's rows over every rank, GSPMD's ragged
+    split: ``ceil(h / world)`` a rank, the last ranks fewer or none)."""
 
     mesh: Mesh
     kind: str
 
     def rows(self, batch_size: int) -> slice:
-        """This rank's rows of a batch of ``batch_size``; a batch that the
-        data axis does not divide raises, as JAX's sharding does."""
+        """This rank's rows of a batch of ``batch_size`` (under "spatial",
+        of an image of ``batch_size`` rows); a batch that the data axis
+        does not divide raises, as JAX's sharding does."""
         if self.kind == "spatial":
-            raise NotImplementedError(SPATIAL_NOT_PORTED)
+            return slice(*owned_rows(batch_size, self.mesh.world_size,
+                                     self.mesh.rank))
         if self.kind == "replicated":
             return slice(0, batch_size)
         n = self.mesh.shape["data"]
@@ -179,9 +181,29 @@ def replicated_sharding(mesh: Mesh) -> RowSharding:
 
 def spatial_sharding(mesh: Mesh) -> RowSharding:
     """Image *rows* across every rank, batch and width whole: JAX's latency
-    mode for batches too small to data-shard (GSPMD compiles the conv halo
-    exchanges). Described here; its ``rows`` raises (ROADMAP A11b)."""
+    mode for batches too small to data-shard, where GSPMD compiles the
+    conv halo exchanges and here ``parallel.spatial`` writes them out."""
     return RowSharding(mesh, "spatial")
+
+
+def gather_rows(band: torch.Tensor, height: int,
+                mesh: Mesh | None) -> torch.Tensor:
+    """The whole (N, height, W, C) tensor on every rank from each rank's
+    ``spatial_sharding`` rows of it (``band``, as a spatial serving fn
+    returns them): one ``all_reduce`` of the rows each rank places, zero
+    elsewhere, which gloo also takes on CUDA tensors. A world of one
+    returns ``band``."""
+    if mesh is None or not mesh.distributed:
+        return band
+    rows = spatial_sharding(mesh).rows(height)
+    if band.shape[1] != rows.stop - rows.start:
+        raise ValueError(f"gather_rows: a band of {band.shape[1]} rows, "
+                         f"where rank {mesh.rank} owns "
+                         f"{rows.stop - rows.start} of {height}")
+    whole = band.new_zeros((band.shape[0], height) + tuple(band.shape[2:]))
+    whole[:, rows] = band
+    dist.all_reduce(whole, group=mesh.group)
+    return whole
 
 
 def shard_batch(batch, mesh: Mesh):

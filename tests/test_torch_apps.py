@@ -332,8 +332,11 @@ def test_inference_benchmark_cli_matches_jax(workspace, tmp_path):
                 argv + ["-o", str(tmp_path / "dp"), "--device", "cpu",
                         "--data-parallel"])
     assert list(dp) == ["RN18-HU"] and list(dp["RN18-HU"]) == list(entry)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        inference_benchmark.main(argv + ["--spatial", "--device", "cpu"])
+    # spatial serving in a world of one: the rank's band is every row
+    sp = _quiet(inference_benchmark.main,
+                argv + ["-o", str(tmp_path / "sp"), "--device", "cpu",
+                        "--spatial"])
+    assert list(sp) == ["RN18-HU"] and list(sp["RN18-HU"]) == list(entry)
     kw = _serving_kwargs(inference_benchmark, argv + [
         "-o", str(tmp_path / "policy"), "--policy", "p.json", "--dw-impl",
         "xla", "--device", "cpu"])

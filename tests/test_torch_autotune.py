@@ -49,6 +49,8 @@ from efficientdepthestimation_tpu_torch.models.common import randomize_
 from efficientdepthestimation_tpu_torch.models.registry import build_model
 
 from test_train_app import synthetic_nyu  # noqa: F401  (8 train, 2 test)
+from torch_tmp_cleanup import delete_tmp_path  # noqa: F401  (autouse)
+from torch_tmp_cleanup import removed_after
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The eight configurations the port serves: (encoder, decoder).
@@ -310,7 +312,8 @@ def cli_workspace(tmp_path_factory):
     (root / "policy.json").write_text(json.dumps({key: {
         "path": "staged", "dw_impl": "xla", "int8": False,
         "bake_weights": False}}))
-    return root
+    with removed_after(root):
+        yield root
 
 
 def _staged_spy(monkeypatch):

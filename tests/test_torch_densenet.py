@@ -58,6 +58,7 @@ from test_torch_midas import (
     _load,
     random_variables,
 )
+from torch_tmp_cleanup import delete_tmp_path  # noqa: F401  (autouse)
 
 MIDAS_SIZES = dict(output_size=(32, 48), input_size=INPUT_HW)
 FULL_HW = (228, 304)

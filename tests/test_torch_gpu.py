@@ -1315,3 +1315,97 @@ def test_artifact_on_card_matches_cpu_twin(bake, tmp_path):
         assert outs[device].device.type == device
     torch.testing.assert_close(outs["cuda"].cpu(), outs["cpu"], rtol=1e-3,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_hw,out_hw,o", [((8, 10), (15, 19), 48),
+                                            ((29, 38), (57, 76), 40),
+                                            ((57, 76), (114, 152), 32)])
+def test_window_kernel_matches_plain_and_whole_on_card(dtype, in_hw, out_hw,
+                                                       o):
+    """The upsample-conv kernel's row window (spatial serving's bands of 1,
+    2, 3 and 8 ranks, with an unaligned x): its plain version within the
+    kernel's tolerance, the whole-image kernel's rows bit for bit, and
+    ``opcheck`` of the window op; it launches once a window."""
+    _need_card()
+    from efficientdepthestimation_tpu_torch.parallel.spatial import (
+        owned_rows,
+        upsample_conv_rows,
+    )
+
+    x, k = _site_up_args(dtype, in_hw, 24, o, b=3, offset=1)
+    whole = upsample_conv(x, k, out_hw)
+    rtol, atol = UP_TOL[dtype]
+    for world in (1, 2, 3, 8):
+        for rank in range(world):
+            start, stop = owned_rows(out_hw[0], world, rank)
+            lo, hi = upsample_conv_rows(start, stop, in_hw[0], out_hw[0])
+            args = (x[:, lo:hi].contiguous(), k, out_hw,
+                    (lo, in_hw[0], start, stop - start))
+            before = upsample_conv.launches
+            y = upproj.upsample_conv_window(*args)
+            assert upsample_conv.launches == before + 1
+            assert torch.equal(y, whole[:, start:stop])
+            torch.testing.assert_close(
+                y.float(), upproj.upsample_conv_window_plain(*args).float(),
+                rtol=rtol, atol=atol)
+    torch.library.opcheck(torch.ops.ede.upsample_conv_window,
+                          (args[0], k, list(out_hw), list(args[3])))
+
+
+def _fenced(t: torch.Tensor, rows: int = 2) -> torch.Tensor:
+    """A contiguous copy of NHWC ``t`` between ``rows`` rows of NaN on
+    either side in memory."""
+    pad = rows * t.shape[2] * t.shape[3]
+    flat = torch.full((t.numel() + 2 * pad,), float("nan"), dtype=t.dtype,
+                      device=t.device)
+    return flat[pad:pad + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_hw,out_hw", [((8, 10), (15, 19)),
+                                          ((15, 20), (29, 38)),
+                                          ((29, 38), (57, 76))])
+def test_window_kernel_reads_only_its_slice_on_card(dtype, in_hw, out_hw):
+    """ENB0's decoder steps of 0.5 put every other upsampled row on a source
+    row, and the kernel also loads the row below it, at a weight of 0. With
+    each window's source rows between rows of NaN in memory, the window
+    equals the whole image's rows for every rank of 1-8 and every image of
+    the batch: the kernel read no row outside the slice it was given."""
+    _need_card()
+    from efficientdepthestimation_tpu_torch.parallel.spatial import (
+        owned_rows,
+        upsample_conv_rows,
+    )
+
+    x, k = _site_up_args(dtype, in_hw, 24, 32, b=2)
+    whole = upsample_conv(x, k, out_hw)
+    for world in range(1, 9):
+        for rank in range(world):
+            start, stop = owned_rows(out_hw[0], world, rank)
+            if stop == start:
+                continue
+            lo, hi = upsample_conv_rows(start, stop, in_hw[0], out_hw[0])
+            y = upproj.upsample_conv_window(
+                _fenced(x[:, lo:hi]), k, out_hw,
+                (lo, in_hw[0], start, stop - start))
+            assert torch.equal(y, whole[:, start:stop]), (world, rank)
+
+
+def test_spatial_serving_in_a_world_of_one_on_card():
+    """Spatial serving in a world of one on the card (every row the rank's
+    band): the kernels' launches of one card, the output within the f32
+    tolerance of the plain serving fn's."""
+    _need_card()
+    from efficientdepthestimation_tpu_torch.parallel import create_mesh
+
+    model = load_any_checkpoint(CHECKPOINT, device="cuda")
+    frames = torch.from_numpy(fixture_frames()[:2]).cuda()
+    want = make_serving_fn(model, upsample_to=(480, 640), preprocess=True,
+                           device="cuda")(frames)
+    fn = make_serving_fn(model, upsample_to=(480, 640), preprocess=True,
+                         mesh=create_mesh(device="cuda"), spatial=True)
+    depthwise_bn_swish.launches = upsample_conv.launches = 0
+    got = fn(frames)
+    assert (depthwise_bn_swish.launches, upsample_conv.launches) == (16, 2)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

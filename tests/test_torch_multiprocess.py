@@ -49,6 +49,8 @@ from efficientdepthestimation_tpu_torch.training.train_step import (
 import torch_parallel_cases as cases
 from multihost_common import run_steps
 from test_train_app import synthetic_nyu  # noqa: F401  (8 train, 2 test)
+from torch_tmp_cleanup import delete_tmp_path  # noqa: F401  (autouse)
+from torch_tmp_cleanup import removed_after
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(TESTS)
@@ -106,7 +108,8 @@ def init_checkpoint(tmp_path_factory):
                           strict=True)
     path = str(tmp_path_factory.mktemp("init") / "resnet18-hu.ede")
     save_checkpoint(path, model, encoder="resnet18", decoder="hu2018")
-    return path
+    with removed_after(os.path.dirname(path)):
+        yield path
 
 
 @pytest.fixture(scope="module")
@@ -115,8 +118,9 @@ def two_ranks(init_checkpoint, tmp_path_factory):
     results, and the directory of the ZeRO-1 and unsharded train states."""
     out = tmp_path_factory.mktemp("two-ranks")
     launch(out, "cases", init_checkpoint)
-    return [torch.load(out / f"rank{r}.pt", weights_only=False)
-            for r in range(2)], out
+    with removed_after(out):
+        yield [torch.load(out / f"rank{r}.pt", weights_only=False)
+               for r in range(2)], out
 
 
 @pytest.fixture(scope="module")

@@ -137,13 +137,25 @@ def test_shardings_describe_rows():
     assert torch.equal(batch["image"], torch.tensor([[6], [7]]))
 
 
-def test_spatial_serving_raises_naming_a11b():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        spatial_sharding(rank_of(2, 0)).rows(4)
+def test_spatial_serving_in_a_world_of_one():
+    """``spatial_sharding`` splits image rows as GSPMD splits a ragged
+    dimension; in a world of one, spatial serving (the whole image the
+    rank's band) serves what the fn without a mesh serves, through both
+    entry points; without a mesh it raises. Several ranks:
+    ``test_torch_spatial.py``."""
+    assert [spatial_sharding(rank_of(3, r)).rows(7) for r in range(3)] == \
+        [slice(0, 3), slice(3, 6), slice(6, 7)]
+    model = _tiny_model()
+    images = torch.randn(3, 32, 48, 3, generator=torch.Generator()
+                         .manual_seed(0))
+    want = make_infer_fn(model, device="cpu", upsample_to=(40, 60))(images)
+    mesh = create_mesh(device="cpu")
     for make in (make_infer_fn, make_serving_fn):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            make(_tiny_model(), device="cpu", mesh=rank_of(2, 0),
-                 spatial=True)
+        got = make(model, device="cpu", mesh=mesh, spatial=True,
+                   upsample_to=(40, 60))(images)
+        torch.testing.assert_close(got, want)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_infer_fn(model, device="cpu", spatial=True)
 
 
 @pytest.mark.parametrize("world", [1, 2, 3, 4])

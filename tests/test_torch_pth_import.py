@@ -41,6 +41,7 @@ from efficientdepthestimation_tpu_torch.models.common import randomize_
 from efficientdepthestimation_tpu_torch.models.registry import build_model
 
 from test_torch_midas import TOL, random_variables
+from torch_tmp_cleanup import delete_tmp_path  # noqa: F401  (autouse)
 
 RELEASED = [(enc, dec) for enc in ("efficientnet-b0", "efficientnet-b4",
                                    "resnet50")

@@ -60,6 +60,7 @@ from test_torch_densenet import (
     check_model,
 )
 from test_torch_midas import INPUT_HW, TOL, _inputs, _load, random_variables
+from torch_tmp_cleanup import delete_tmp_path  # noqa: F401  (autouse)
 
 SMALL = (1, 1, 1, 1)
 # One variant of each bottleneck style.

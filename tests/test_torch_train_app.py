@@ -35,6 +35,7 @@ from efficientdepthestimation_tpu_torch.models.registry import build_model
 from efficientdepthestimation_tpu_torch.training import train_step as pstep
 
 from test_train_app import synthetic_nyu  # noqa: F401  (8 train, 2 test)
+from torch_tmp_cleanup import delete_tmp_path  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)
