@@ -161,20 +161,21 @@ Phases, one output line each (more for the per-site detail):
      loader, prefetch, metrics read one step behind and the stop flag
      reduced on the host at every step boundary) a step beside the bare
      step's, with the flag's reduction alone.
- 14. serving forms (``apps.common``, ``apps.autotune``): the eight
-     configurations (ENB0-HU and ENB0-LR from their ``.ede``, the others
-     with phase 8's weights) serve phase 4's frames in bf16 in each form:
+ 14. serving forms (``apps.common``, ``apps.autotune``): a configuration
+     of each encoder and decoder family (FORMS_CONFIGS: ENB0-HU and ENB0-LR
+     from their ``.ede``, RN50-HU, DN161-HU and SN154-HU with phase 8's
+     weights) serve phase 4's frames in bf16 in each form:
      monolithic, staged under each MFF merge (Hu2018), and the depthwise
      modes "xla" and "shift" (EfficientNet encoders), each with exact
      launches, within phase 5's bf16 tolerances of the monolithic output
      (ENB0-HU's also of the JAX fixture), its frames/s, idle share and
-     peak memory; at batch 256 the monolithic, staged, tiled and
-     tiled-staged forms (tiles of 128), frames/s and peak; that
+     peak memory; ENB0-HU at batches 256, 512 and 1024 in one call and in
+     tiles of half (256 also tiled-staged), frames/s and peak; that
      ``make_serving_fn`` serves its rule's form; int8 at RN50-HU,
      SN154-HU, DN161-HU and ENB0-HU: each quantized conv's int8 time
      against cuDNN's bf16 conv by graph replay, then the int8 forward's
      launches, frames/s and ``rel_out_err`` against the float output (at
-     most ``INT8_REL_MAX``); ``autotune_serving`` for ENB0-HU and RN50-HU
+     most ``INT8_REL_MAX``); ``autotune_serving`` for ENB0-HU
      at batch 128 into a policy that ``make_serving_fn`` must then follow,
      and ``autotune_train`` for ENB0-HU at batch 64, whose winner the
      training CLI's ``--train-policy`` must resolve to; the phase's
@@ -183,7 +184,7 @@ Phases, one output line each (more for the per-site detail):
      artifact: ``torch.library.opcheck`` of the ``ede::`` ops on the card
      at every distinct shape ENB0-HU's serving path gives the depthwise
      and upsample-conv ops (batch 128, bf16 and f32) and at the loss
-     pair's training shape; the eight configurations served unbaked and
+     pair's training shape; phase 14's configurations served unbaked and
      baked (``bake_weights``) in bf16 at batch 128, each with exact
      launches, each within phase 5's bf16 tolerances of the model's own
      f32 forward, the baked f32 forward within FOLD_REL_MAX of the
@@ -217,8 +218,21 @@ Phases, one output line each (more for the per-site detail):
      gathered depth against the one-rank fn's (f32 within
      SPATIAL_F32_ATOL m, bf16 within phase 5's limits), each rank's
      batch-1 latency and its all-reduces beside one rank's latency.
+ 17. the end-to-end rehearsal: ``scripts/run_e2e_torch.py`` in a
+     subprocess at a reduced size (E2E_ARGS; the dataset, ENB0-HU and
+     ENB0-LR each trained to a real SIGTERM and resumed, the LR fine-tune,
+     evaluate, test_nyu, inference_benchmark, the benchmark harness with
+     five entrants, the study materials); its outcomes read back (each
+     preempted run and its resumed best checkpoint, the staged HU and LR
+     checkpoints loaded, evaluate at batch 1 against batch 4, finite
+     benchmark rows, the study files); then from its staged HU
+     checkpoint, counted from 0, one f32 training step on its data (0 + 2
+     + 1 + 1 launches) and one f32 eval batch (16 + 2); the wall seconds
+     of each of its phases.
 
-It prints a JSON line of phase 16's figures, a JSON line of phase 15's
+It prints a JSON line of each phase's wall seconds, a JSON line of phase
+17's figures, a JSON line of phase 16's
+figures, a JSON line of phase 15's
 figures, a JSON line of the serving
 forms, a JSON line of the native
 libraries' build, a JSON line of the parallelism figures, a JSON line of
@@ -235,6 +249,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import datetime
 import functools
 import io
@@ -522,20 +537,19 @@ EVAL_DEPTH_RTOL, EVAL_COUNT_ATOL = 1e-4, 2e-3
 # Phase 10. Points: unproject_depth on the card against the CPU on the same
 # depth, f32 element-wise products and quotients whose divisor PyTorch's
 # CUDA kernel may apply as a product with its reciprocal (1 ulp, 6e-8):
-# 1e-6 relative. depth_video's preprocess: the card's resize sums in
-# another order than the CPU's, and a value within rounding of .5 rounds
-# to the other uint8 level, 1/255 of the range before the two divisions by
-# the std and 255, so at most 1/(255·0.224·255) = 6.9e-5; the port against
-# JAX on the CPU (16 frames, 480x640 and 300x500) differs by 2.8e-9 at
-# most, with no level flipped.
+# 1e-6 relative. depth_video's preprocess: a value within rounding of .5
+# that rounded to the other uint8 level would move 1/255 of the range
+# before the two divisions by the std and 255, so at most
+# 1/(255·0.224·255) = 6.9e-5; the port against JAX on the CPU (16 frames,
+# 480x640 and 300x500) differs by 2.8e-9 at most, with no level flipped.
 POINT_RTOL = 1e-6
 PREPROCESS_ATOL = 7e-5
 # The preprocess is checked on the fixture's 480x640 frames, where its
 # Scale to 640x480 is the identity, and on the same frames resized on the
 # host to a 1080p video's 1080x1920 and to 300x500, which go through it
-# as downsamples (matrix products), and to 200x300 and 96x128, which go
-# through it as upsamples (ops.resize._pil_pass's elementwise sums, the
-# same bits on the card as on the CPU).
+# as downsamples, and to 200x300 and 96x128, which go through it as
+# upsamples: each pass ops.resize._pil_pass's elementwise sums in XLA's
+# CPU order, the same bits on the card as on the CPU.
 PREPROCESS_HWS = ((480, 640), (1080, 1920), (300, 500), (200, 300),
                   (96, 128))
 # Loss kernel pair vs its plain versions, same inputs on the card.
@@ -1388,9 +1402,18 @@ def phase_lr(frames, card) -> dict:
 
 def random_model(name: str) -> torch.nn.Module:
     """A released configuration at full width and depth with the seeded
-    random weights of ``randomize_``, on the card."""
+    random weights of ``randomize_``, on the card: a copy of the host model
+    ``random_host_model`` drew once."""
+    return copy.deepcopy(random_host_model(name)).to(DEVICE)
+
+
+@functools.lru_cache(maxsize=None)
+def random_host_model(name: str) -> torch.nn.Module:
+    """``randomize_`` of ``name`` on the host, drawn once a run: phases 3,
+    8, 11, 14 and 15 take the same weights, and SN154-HU's draw alone
+    takes seconds."""
     encoder, decoder, seed, _ = RANDOM_CONFIGS[name]
-    return randomize_(build_model(encoder, decoder), seed).to(DEVICE)
+    return randomize_(build_model(encoder, decoder), seed)
 
 
 def phase_random(name: str, frames, card) -> dict:
@@ -3962,7 +3985,15 @@ def phase_parallel(frames, card) -> dict:
 # after the counted one, a run out of device memory recorded as such; the
 # int8 sites and forwards of INT8_CONFIGS; and the autotuner on
 # TUNE_CONFIGS and on the ENB0-HU training step.
-FORMS_CONFIGS = ("ENB0-HU", "ENB0-LR", *RANDOM_CONFIGS)
+# A configuration of each encoder and decoder family: ENB4-HU, ENB4-LR and
+# RN50-LR take the code paths of ENB0-HU, ENB0-LR and RN50-HU at other
+# widths and are left out here and in phase 15, to keep the whole script
+# inside its time limit beside phase 17 (their forms and baked forms were
+# last run at commit 0e6bf95); phase 8 still serves them and phase 11
+# trains them. Batches above BATCH are served by ENB0-HU alone
+# (BIG_CONFIGS).
+FORMS_CONFIGS = ("ENB0-HU", "ENB0-LR", "RN50-HU", "DN161-HU", "SN154-HU")
+BIG_CONFIGS = ("ENB0-HU",)
 BIG_BATCHES = (2 * BATCH, 4 * BATCH, 8 * BATCH)
 # Two timed calls after the counted one, so that a refit of TILE_ABOVE
 # reads more than one call (on an H100 at 700 W phase 14 took 192 s so,
@@ -3977,7 +4008,7 @@ INT8_CONFIGS = ("RN50-HU", "SN154-HU", "DN161-HU", "ENB0-HU")
 INT8_REL_MAX = 0.03
 INT8_GRAPH_ITERS, INT8_GRAPH_REPLAYS = 3, 2
 INT8_WARMUP, INT8_ITERS = 1, 3
-TUNE_CONFIGS = ("ENB0-HU", "RN50-HU")
+TUNE_CONFIGS = ("ENB0-HU",)
 # The autotuners' calls a candidate (after one untimed call): serving,
 # then training steps.
 TUNE_WARMUP, TUNE_ITERS = 1, 3
@@ -4162,7 +4193,7 @@ def forms_config(name: str, frames, fx_up, card) -> dict:
                if fx_up is not None else ""))
         out[label] = row
         del serve
-    for batch in BIG_BATCHES:
+    for batch in BIG_BATCHES if name in BIG_CONFIGS else ():
         out[f"b{batch}"] = forms_big(name, model, expected, frames, batch,
                                      card)
     rule_batches = (BATCH, *BIG_BATCHES, 2 * BIG_BATCHES[-1])
@@ -5005,6 +5036,149 @@ def phase_spatial(card) -> dict:
     return out
 
 
+
+# Phase 17: the end-to-end rehearsal (scripts/run_e2e_torch.py) in a
+# subprocess, at a reduced size: 64 + 16 pairs, SIGTERM once 1 epoch is
+# logged, a 1-epoch fine-tune, 4 benchmark samples. 3 epochs, not 2: with 8
+# steps an epoch, a SIGTERM sent a second after the first epoch's log line
+# can land after the second epoch's last step, and the run then ends
+# unpreempted; the third epoch keeps a step boundary ahead of it. Batch 1
+# against batch 4 of apps.evaluate: the sums' order only, 1e-3 relative on
+# every metric but LOG10, which the reference divides by the batch count
+# (e2e/E2E.md). Then, with the counts set to 0, one f32 training step on
+# the rehearsal's data (its CLI's dtype: the loss pair and the f32 route's
+# upsample-conv sites) and one f32 eval batch of its test split, from its
+# staged HU checkpoint.
+E2E_ARGS = ["--n-train", "64", "--n-test", "16", "--epochs", "3",
+            "--preempt-after-epochs", "1", "--freeze-epochs", "1",
+            "--bench-samples", "4", "--poll-seconds", "1"]
+E2E_EVAL_RTOL = 1e-3
+E2E_ENTRANTS = ("random", "reside_enb0_hu_trained", "midas_enb0_lr_trained",
+                "reside_enb0_random", "flat")
+E2E_BATCH = 8
+E2E_STEP_LAUNCHES = (0, ENB0_HU_F32_LAUNCHES[1], 1, 1)
+
+
+def e2e_checks(work: str) -> dict:
+    """The rehearsal's outcomes, read from its work directory."""
+    meta = json.load(open(os.path.join(work, "train_meta.json")))
+    out = {}
+    for tag in ("hu", "lr"):
+        text = open(os.path.join(work, f"train_{tag}_a.log")).read()
+        preempted = re.findall(r"Preempted at epoch \d+", text)
+        run_b = os.path.join(work, "runs", meta["run_dirs"][tag][1])
+        best = [p for p in os.listdir(run_b)
+                if p.endswith(".ede") and p != "train_state.ede"]
+        if not preempted or not best:
+            raise RuntimeError(f"rehearsal {tag}: preempted {preempted}, "
+                               f"resumed run's checkpoints {best}")
+        out[tag] = dict(preempted=preempted[0], epochs=len(
+            meta["trajectories"][tag]))
+    for name in ("ENB0-HU", "ENB0-LR"):
+        load_any_checkpoint(os.path.join(work, "checkpoints", f"{name}.ede"),
+                            device=DEVICE)
+    evals = {}
+    for bs in (1, 4):
+        line = next(ln for ln in open(os.path.join(work, f"evaluate_b{bs}.log"))
+                    if ln.startswith("EVALUATE "))
+        evals[bs] = json.loads(line.removeprefix("EVALUATE "))
+    rel = {k: abs(evals[1][k] - evals[4][k]) / max(abs(evals[1][k]), 1e-12)
+           for k in evals[1]}
+    bad = {k: v for k, v in rel.items() if k != "log10" and v > E2E_EVAL_RTOL}
+    if bad:
+        raise RuntimeError(f"rehearsal evaluate, batch 1 against 4: {bad}")
+    rows = list(csv.reader(open(os.path.join(work, "benchmark_out",
+                                             "nyu.csv"))))
+    header, table = rows[0], {r[0]: r for r in rows[1:]}
+    if sorted(table) != sorted(E2E_ENTRANTS):
+        raise RuntimeError(f"rehearsal benchmark entrants {sorted(table)}")
+    for name, row in table.items():
+        for key in ("mae", "abs_rel", "rmse", "ssim", "lpips"):
+            if not math.isfinite(float(row[header.index(key)])):
+                raise RuntimeError(f"rehearsal benchmark {name} {key}")
+    study = os.path.join(work, "study_material")
+    n_study = sum(len(f) for _, _, f in os.walk(study))
+    if not os.path.isfile(os.path.join(study, "video_urls.csv")):
+        raise RuntimeError("rehearsal study materials not written")
+    out.update(evaluate_rel=rel, study_files=n_study, abs_rel={
+        name: float(table[name][header.index("abs_rel")])
+        for name in E2E_ENTRANTS})
+    return out
+
+
+def e2e_launches(work: str, data: str) -> dict:
+    """The launches of one f32 training step on the rehearsal's training
+    data and of one eval batch of its test split, from its staged HU
+    checkpoint, each counted from 0."""
+    from PIL import Image
+
+    path = os.path.join(work, "checkpoints", "ENB0-HU.ede")
+    model = load_any_checkpoint(path, device=DEVICE)
+    state = create_train_state(model, LR, WEIGHT_DECAY)
+    step = make_train_step(mixed_precision=False, device=DEVICE)
+    train = DepthPairDataset(os.path.join(data, "train.csv"), is_test=False)
+    batch = next(iter(train_app._epoch_batches(train, E2E_BATCH, DEVICE,
+                                               shuffle=True, seed=0)))
+    torch.cuda.synchronize()
+    for c in KERNEL_COUNTERS.values():
+        c.launches = 0
+    state, metrics = step(state, batch, 0)
+    step_launches = launches_since(dict.fromkeys(KERNEL_COUNTERS, 0))
+    if step_launches != E2E_STEP_LAUNCHES or not math.isfinite(
+            float(metrics["loss"])):
+        raise RuntimeError(f"rehearsal f32 training step: launches "
+                           f"{step_launches}, expected {E2E_STEP_LAUNCHES}; "
+                           f"loss {float(metrics['loss'])}")
+    with open(os.path.join(data, "test.csv")) as f:
+        rows = list(csv.reader(f))[:E2E_BATCH]
+    pairs = [(np.asarray(Image.open(img).convert("RGB")),
+              np.asarray(Image.open(dep))) for img, dep in rows]
+    model = load_any_checkpoint(path, device=DEVICE)
+    _, eval_launches, _ = eval_counted(model, pairs, E2E_BATCH,
+                                       ENB0_HU_F32_LAUNCHES)
+    del model, state, step
+    return dict(step=step_launches,
+                eval=tuple(eval_launches.values()))
+
+
+def phase_e2e(card) -> dict:
+    """17: the rehearsal (see E2E_ARGS)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("out", "work", "data")}
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts",
+                                          "run_e2e_torch.py"), *E2E_ARGS,
+             "--out", dirs["out"], "--work-dir", dirs["work"],
+             "--data-dir", dirs["data"]],
+            cwd=tmp, capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr)
+            raise RuntimeError(f"scripts/run_e2e_torch.py exited "
+                               f"{proc.returncode}")
+        out = dict(card=card, checks=e2e_checks(dirs["work"]),
+                   launches=e2e_launches(dirs["work"], dirs["data"]))
+        out["timings"] = json.load(open(os.path.join(dirs["out"],
+                                                     "timings_torch.json")))
+    out["seconds"] = time.perf_counter() - t0
+    checks, launches = out["checks"], out["launches"]
+    log("17 e2e", f"{card}: scripts/run_e2e_torch.py {' '.join(E2E_ARGS)}: "
+        f"{checks['hu']['preempted']} (HU), {checks['lr']['preempted']} "
+        f"(LR), resumed; staged HU and LR load; evaluate batch 1 against 4 "
+        f"worst relative (but LOG10) "
+        f"{max(v for k, v in checks['evaluate_rel'].items() if k != 'log10'):.2e}"
+        f" (<= {E2E_EVAL_RTOL}); benchmark abs_rel " + ", ".join(
+            f"{k} {v:.4f}" for k, v in checks["abs_rel"].items())
+        + f"; {checks['study_files']} study files; from the staged HU "
+        f"checkpoint, launches (depthwise, upsample-conv, loss forward, loss "
+        f"backward) of one f32 step {launches['step']}, of one eval batch "
+        f"of {E2E_BATCH} {launches['eval']}")
+    log("17 e2e", "wall s a phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["timings"].items() if k != "card"))
+    log("17 e2e", f"ok: phase 17 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5023,9 +5197,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def done(phase: str) -> None:
+        """The wall seconds since the previous phase ended."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[phase] = round(now - t_phase, 1)
+        t_phase = now
+
     phase_build()
     native_info = phase_native_build()
     card = phase_card()
+    done("1-2 build, card")
     model = load_any_checkpoint(CHECKPOINT, device=DEVICE)
     dw_sites, up_sites, _ = main_path_sites(model)
     if (len(dw_sites), len(up_sites)) != ENB0_HU_LAUNCHES:
@@ -5036,8 +5221,10 @@ def main() -> int:
     for key, e in other_errs.items():
         errs[key] = max(errs[key], e)
     errs.update(phase_loss_kernels())
+    done("3 kernels, routes")
     serve, frames, launches = phase_serve(model)
     res, rate = phase_time(model, serve, frames, card, dw_sites, up_sites)
+    done("4-5 serve, time")
     configs = [dict(name="ENB0-HU", launches=dict(launches), **rate)]
     del serve, model
     phase_train_fixture()
@@ -5046,21 +5233,35 @@ def main() -> int:
     launches.update({k: train_launches[k] for k in ("fused_depth_loss",
                                                     "fused_depth_loss_bwd")})
     del state, step, batch
+    done("6 train")
     configs.append(phase_lr(frames, card))
     for name in RANDOM_CONFIGS:
         configs.append(phase_random(name, frames, card))
     for c in configs:
         c["card"] = card
+    done("7-8 configs")
     evaluation = phase_eval(card)
+    done("9 eval")
     apps = phase_pth_apps(frames, card)
+    done("10 apps")
     training = phase_train_cli(frames, card)
+    done("11 train CLI")
     benchmark = phase_benchmark(card)
+    done("12 benchmark")
     parallel = phase_parallel(frames, card)
+    done("13 parallel")
     forms = phase_forms(frames, card)
+    done("14 forms")
     parent = (sys.argv[sys.argv.index("--parent-tree") + 1]
               if "--parent-tree" in sys.argv else None)
     ops_bake = phase_ops_bake_artifact(frames, card, parent)
+    done("15 ops, bake, artifact")
     spatial_figures = phase_spatial(card)
+    done("16 spatial")
+    e2e = phase_e2e(card)
+    done("17 e2e")
+    log("seconds", f"{card}: wall s a phase " + json.dumps(seconds)
+        + f", {sum(seconds.values()):.1f} in all")
 
     # ms: each kernel timed as its first version was, so that a change of
     # method moves no figure: CUDA events over eager calls for the serving
@@ -5088,6 +5289,8 @@ def main() -> int:
             "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": max(r["bytes"], r["ops"]),
             "bound_by": "bytes" if r["bytes"] >= r["ops"] else "operations",
             "library_ms": None})
+    print(json.dumps({"phase_seconds": seconds}))
+    print(json.dumps({"e2e": e2e}))
     print(json.dumps({"spatial": spatial_figures}))
     print(json.dumps({"ops_bake_artifact": ops_bake}))
     print(json.dumps({"forms": forms}))

@@ -227,90 +227,126 @@ def resize_nearest_torch(x: torch.Tensor,
     return x[:, rows][:, :, cols]
 
 
-@functools.lru_cache(maxsize=None)
-def pil_resize_taps(in_size: int, out_size: int,
-                    filter: str = "bilinear") -> tuple[np.ndarray, np.ndarray]:
-    """The band of ``pil_resize_matrix``: per output index its first source
-    index ``lo`` (out_size,) and the weights of sources ``lo + t``
-    (out_size, taps), zero past the band; ``lo + t`` stays in range."""
-    mat = pil_resize_matrix(in_size, out_size, filter)
-    nz = mat != 0
-    lo = np.where(nz.any(1), nz.argmax(1), 0)
-    hi = np.where(nz.any(1), in_size - nz[:, ::-1].argmax(1), 1)
-    taps = int((hi - lo).max())
-    lo = np.minimum(lo, in_size - taps)
-    weights = np.stack([mat[np.arange(out_size), lo + t] for t in range(taps)],
-                       axis=1)
-    return lo.astype(np.int64), weights
-
-
-def _pil_tap_starts(in_size: int, out_size: int, filter: str) -> np.ndarray:
-    return pil_resize_taps(in_size, out_size, filter)[0]
-
-
-def _pil_tap_weights(in_size: int, out_size: int, filter: str) -> np.ndarray:
-    return pil_resize_taps(in_size, out_size, filter)[1]
-
-
-#: The JAX and jaxlib versions whose XLA CPU dot ``xla_cpu_fuses_sum`` was
-#: read off. The rule is that backend's GEMM blocking, not a property of
-#: the resize: another XLA version may block otherwise, and then the
-#: port's uint8 levels part from JAX's at ties again (the C8 test fails).
+#: The JAX and jaxlib versions whose XLA CPU dot ``xla_cpu_sum_order``
+#: was read off. The order is that backend's GEMM kernels and blocking, not
+#: a property of the resize: another XLA version may sum otherwise, and
+#: then the port's uint8 levels part from JAX's at ties again (the C8 and
+#: C9 tests fail and name both versions).
 XLA_CPU_RULE_FITTED_ON = "jax 0.9.0, jaxlib 0.9.0"
 
 
 def xla_cpu_fuses_sum(out_size: int) -> bool:
     """Whether the JAX package's f32 resize on the CPU adds each tap to its
-    partial sum with one rounding (a fused multiply-add) rather than two.
+    partial sum with one rounding (a fused multiply-add), in one running
+    sum, rather than in four (``xla_cpu_sum_order``).
 
-    XLA's CPU dot of (M, K) by the (K, out) matrix rounds each product and
-    each sum, except when ``(out - 1) % 64 >= 48``, where it fuses them
-    (measured at M ≥ 72 rows, which every pass of an image at least 24
-    pixels across has). Summed in ascending tap order either way. The rule
-    was read off one XLA version (``XLA_CPU_RULE_FITTED_ON``) and is tied
-    to it.
+    XLA's CPU dot of (M, K) by the (K, out) matrix takes this kernel when
+    ``(out - 1) % 64 >= 48`` (measured at M from 24 to 11,520 rows). The
+    rule was read off one XLA version (``XLA_CPU_RULE_FITTED_ON``) and is
+    tied to it.
     """
     return (out_size - 1) % 64 >= 48
 
 
+def xla_cpu_sum_order(out_size: int) -> tuple[int, int]:
+    """``(lanes, block)`` of the JAX package's f32 resize pass on the CPU,
+    an XLA dot over the source index k.
+
+    The dot cuts k into blocks of ``block`` from 0, sums each block on its
+    own and adds the blocks' sums in ascending order, one rounding each.
+    Within a block, source k goes to running sum ``k % lanes``, each a
+    fused multiply-add in ascending k from zero; four lanes are then
+    combined as ``(s0 + s1) + (s2 + s3)``. Where ``xla_cpu_fuses_sum`` holds,
+    one lane in blocks of 512, else four lanes in blocks of 2048. Read off
+    ``XLA_CPU_RULE_FITTED_ON`` bit for bit: 2 to 42 taps, K from 100 to
+    5,200, out from 49 to 427.
+    """
+    return (1, 512) if xla_cpu_fuses_sum(out_size) else (4, 2048)
+
+
+@functools.lru_cache(maxsize=None)
+def pil_sum_program(in_size: int, out_size: int, filter: str = "bilinear"
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """``pil_resize_matrix`` as the sums of ``xla_cpu_sum_order``.
+
+    Returns ``(indices, weights)``, each (blocks, lanes, steps, out_size):
+    step j of lane r in the b-th block an output touches reads source
+    ``indices[b, r, j]`` with weight ``weights[b, r, j]`` (0 past the
+    output's taps there, its index then a valid one). The steps of a lane
+    ascend in k.
+    """
+    mat = pil_resize_matrix(in_size, out_size, filter)
+    lanes, block = xla_cpu_sum_order(out_size)
+    nz = mat != 0
+    lo = np.where(nz.any(1), nz.argmax(1), 0)
+    hi = np.where(nz.any(1), in_size - nz[:, ::-1].argmax(1), 1)
+    first = lo // block
+    blocks = int((((hi - 1) // block) - first).max()) + 1
+    slots = [[[] for _ in range(lanes)] for _ in range(blocks)]
+    for n in range(out_size):
+        per = [[[] for _ in range(lanes)] for _ in range(blocks)]
+        for k in range(lo[n], hi[n]):
+            per[k // block - first[n]][k % lanes].append(k)
+        for b in range(blocks):
+            for r in range(lanes):
+                slots[b][r].append(per[b][r])
+    steps = max(len(ks) for lane in slots for sums in lane for ks in sums)
+    indices = np.tile(lo, (blocks, lanes, steps, 1))
+    weights = np.zeros((blocks, lanes, steps, out_size), np.float32)
+    for b in range(blocks):
+        for r in range(lanes):
+            for n, ks in enumerate(slots[b][r]):
+                indices[b, r, :len(ks), n] = ks
+                weights[b, r, :len(ks), n] = mat[n, ks]
+    return indices.astype(np.int64), weights
+
+
+def _pil_sum_indices(in_size: int, out_size: int, filter: str) -> np.ndarray:
+    return pil_sum_program(in_size, out_size, filter)[0]
+
+
+def _pil_sum_weights(in_size: int, out_size: int, filter: str) -> np.ndarray:
+    return pil_sum_program(in_size, out_size, filter)[1]
+
+
 def _pil_pass(x: torch.Tensor, in_size: int, out_size: int, axis: int,
               filter: str) -> torch.Tensor:
-    """One pass of ``pil_resize`` along ``axis`` (1 or 2).
-
-    A pass that upsamples reads two source pixels an output, and is rounded
-    as the JAX package rounds it on the CPU: the two taps added in
-    ascending order, fused or not as ``xla_cpu_fuses_sum`` says, in
-    elementwise IEEE operations, so that the CPU and the card give the same
-    bits (a fused step in f64, where an f32 product is exact, rounded once
-    to f32). A pass that reads more (a downsample) is a matrix product, as
-    the pass was before: XLA sums its taps in blocks this does not mirror.
+    """One pass of ``pil_resize`` along ``axis`` (1 or 2), rounded as the
+    JAX package's XLA dot rounds it on the CPU (``xla_cpu_sum_order``): each
+    tap a gather and elementwise IEEE operations, so that the CPU and the
+    card give the same bits. A fused step is done in f64, where an f32
+    product is exact, and rounded once to f32.
     """
-    lo, weights = pil_resize_taps(in_size, out_size, filter)
-    if weights.shape[1] > 2:
-        mat = device_constant(pil_resize_matrix, in_size, out_size, filter,
-                              dtype=x.dtype, device=x.device)
-        eq = "Hh,nhwc->nHwc" if axis == 1 else "Ww,nhwc->nhWc"
-        return torch.einsum(eq, mat, x)
-    fused = xla_cpu_fuses_sum(out_size)
+    weights = pil_sum_program(in_size, out_size, filter)[1]
+    blocks, lanes, steps, _ = weights.shape
     shape = [1] * x.dim()
     shape[axis] = out_size
-    idx = device_constant(_pil_tap_starts, in_size, out_size, filter,
-                          dtype=torch.int64, device=x.device)
-    w = device_constant(_pil_tap_weights, in_size, out_size, filter,
-                        dtype=torch.float64 if fused else x.dtype,
-                        device=x.device)
-    acc = None
-    for t in range(weights.shape[1]):
-        src = x.index_select(axis, idx + t)
-        wt = w[:, t].reshape(shape)
-        if fused:
-            term = wt * src.double()
-            acc = term if acc is None else acc.double() + term
-            acc = acc.to(x.dtype)
-        else:
-            term = wt * src
-            acc = term if acc is None else acc + term
-    return acc
+    kw = dict(device=x.device)
+    idx = device_constant(_pil_sum_indices, in_size, out_size, filter,
+                          dtype=torch.int64, **kw)
+    w = device_constant(_pil_sum_weights, in_size, out_size, filter,
+                        dtype=torch.float64, **kw)
+    total = None
+    for b in range(blocks):
+        sums = []
+        for r in range(lanes):
+            acc = None
+            for j in range(steps):
+                if not weights[b, r, j].any():
+                    continue
+                term = (w[b, r, j].reshape(shape)
+                        * x.index_select(axis, idx[b, r, j]).double())
+                acc = (term if acc is None else acc.double() + term).to(
+                    x.dtype)
+            sums.append(acc)
+        if lanes == 1:
+            part = sums[0]
+        else:  # a lane no output of the block reads sums to zero
+            zero = torch.zeros_like(next(s for s in sums if s is not None))
+            s0, s1, s2, s3 = (zero if s is None else s for s in sums)
+            part = (s0 + s1) + (s2 + s3)
+        total = part if total is None else total + part
+    return total
 
 
 def pil_resize(x: torch.Tensor, size: tuple[int, int],
@@ -321,9 +357,9 @@ def pil_resize(x: torch.Tensor, size: tuple[int, int],
     ``quantize_uint8`` rounds half to even and clips to [0, 255] after
     resampling, matching the uint8 storage PIL applies between stages. A
     value that lies on a rounding tie within f32 error rounds to the side
-    that the JAX package's summation order gives it, so a pass that
-    upsamples is then summed tap by tap as that package sums it on the CPU
-    (``_pil_pass``), not by a matrix product whose order is the library's.
+    that the JAX package's summation order gives it, so each pass is then
+    summed tap by tap as that package sums it on the CPU (``_pil_pass``),
+    not by a matrix product whose order is the library's.
     """
     h_out, w_out = int(size[0]), int(size[1])
     _, h_in, w_in, _ = x.shape

@@ -1409,3 +1409,30 @@ def test_spatial_serving_in_a_world_of_one_on_card():
     got = fn(frames)
     assert (depthwise_bn_swish.launches, upsample_conv.launches) == (16, 2)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("hw", [(300, 500), (1080, 1920)])
+def test_pil_passes_on_card_equal_cpu(hw):
+    """C9: each Scale-240 pass of ``pil_resize(quantize_uint8=True)`` sums
+    its taps in XLA's CPU order in elementwise IEEE operations
+    (``ops.resize._pil_pass``): on the card the CPU's bits, pass by pass,
+    and so the same uint8 levels, at 300x500 (3 taps) and 1080x1920
+    (7-9)."""
+    _need_card()
+    from efficientdepthestimation_tpu_torch.data.transforms import (
+        scale_short_side,
+        scale_short_side_size,
+    )
+    from efficientdepthestimation_tpu_torch.ops.resize import _pil_pass
+
+    (h, w), x = hw, torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, *hw, 3)).astype(np.float32))
+    oh, ow = scale_short_side_size(h, w, 240)
+    cpu_h = _pil_pass(x, h, oh, 1, "bilinear")
+    card_h = _pil_pass(x.cuda(), h, oh, 1, "bilinear")
+    assert torch.equal(card_h.cpu(), cpu_h)
+    assert torch.equal(_pil_pass(card_h, w, ow, 2, "bilinear").cpu(),
+                       _pil_pass(cpu_h, w, ow, 2, "bilinear"))
+    assert torch.equal(
+        scale_short_side(x.cuda(), 240, "bilinear", True).cpu(),
+        scale_short_side(x, 240, "bilinear", True))

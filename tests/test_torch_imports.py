@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no JAX, and the card unless asked for CPU.
 
-Every module of ``efficientdepthestimation_tpu_torch`` and ``chip_smoke.py``
-is imported in a fresh interpreter, which must then hold no ``jax``, ``flax``
+Every module of ``efficientdepthestimation_tpu_torch``, ``chip_smoke.py`` and
+``scripts/run_e2e_torch.py`` is imported in a fresh interpreter, which must then hold no ``jax``, ``flax``
 or ``efficientdepthestimation_tpu`` module, and none of PIL, pandas,
 matplotlib and cv2, which the card's machine lacks: a module that decodes
 or writes images or video imports them where it does so, as the study
@@ -50,6 +50,8 @@ def test_port_imports_no_jax():
         [f"import {m}" for m in modules] + [
             "import chip_smoke",
             "import sys",
+            "sys.path.insert(0, 'scripts')",
+            "import run_e2e_torch",
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', "
             "'efficientdepthestimation_tpu', 'PIL', 'pandas', 'matplotlib', "
